@@ -1,0 +1,77 @@
+"""Scene data carried across from numpy.
+
+`scene_from_numpy` takes a scene as plain numpy arrays — the JAX
+package's Scene, ClusterSet, MaterialTable, TextureTable and LightTable
+fields flattened to dicts by the caller — and returns the port's Scene,
+so both packages can render the very same scene. `camera_from_numpy`
+does the same for a perspective camera. Nothing here imports the JAX
+package."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import resolve_device
+from .cameras.cameras import PerspectiveCamera
+from .core import transform as tf
+from .geom import cluster as clmod
+from .geom.scene import Scene
+from .geom.types import triangles_from_numpy
+from .lights.lights import lights_from_numpy
+from .shade.materials import materials_from_numpy
+from .shade.textures import textures_from_numpy
+
+
+def _clusters(c, device):
+    """The JAX ClusterSet's fields → the port's ClusterSet. Slab bounds
+    come from the coverage feature table: plane 2·ax (lo) and 2·ax+1 (hi)
+    carry the bound in feature row ax."""
+    cov = np.asarray(c["cov_mxu"], np.float32)
+    bounds = np.zeros((6, cov.shape[2]), np.float32)
+    for ax in range(3):
+        bounds[2 * ax] = cov[ax, 2 * ax]
+        bounds[2 * ax + 1] = cov[ax, 2 * ax + 1]
+    return clmod.cluster_set_from_numpy(dict(
+        packed=c["packed"], bounds=bounds, c_tri_id=np.asarray(c["c_tri_id"], np.int64),
+        world_min=c["world_min"], world_max=c["world_max"]), device)
+
+
+def scene_from_numpy(tree, device=None, tile=clmod.TILE):
+    """tree: dict with "tri", "clusters" (or None), "materials",
+    "lights", "textures" (or None) sub-dicts of numpy arrays, plus
+    "world_center" and "world_radius"."""
+    device = resolve_device(device)
+    t = tree["tri"]
+    if int(tree["lights"].get("env_index", -1)) >= 0:
+        raise NotImplementedError("infinite lights are not ported yet")
+    return Scene(
+        tri=triangles_from_numpy(t["positions"], t["indices"], t["normals"], t["uvs"],
+                                 t["has_normals"], t["material_id"], t["light_id"], device),
+        clusters=_clusters(tree["clusters"], device) if tree.get("clusters") else None,
+        materials=materials_from_numpy(tree["materials"], device),
+        lights=lights_from_numpy(tree["lights"], device),
+        textures=(textures_from_numpy(tree["textures"], device)
+                  if tree.get("textures") else None),
+        world_center=torch.as_tensor(np.asarray(tree["world_center"], np.float32),
+                                     device=device),
+        world_radius=float(tree["world_radius"]),
+        tile=tile)
+
+
+def camera_from_numpy(cam, device=None):
+    """cam: dict of a perspective camera's fields; each transform is a
+    pair (m, m_inv) of (4, 4) arrays, used as given."""
+    device = resolve_device(device)
+
+    def xf(pair):
+        m, m_inv = pair
+        return tf.Transform(torch.tensor(np.array(m, np.float32), device=device),
+                            torch.tensor(np.array(m_inv, np.float32), device=device))
+
+    f = lambda k: float(np.float32(cam[k]))  # noqa: E731
+    return PerspectiveCamera(
+        camera_to_world=xf(cam["camera_to_world"]),
+        raster_to_camera=xf(cam["raster_to_camera"]),
+        lens_radius=f("lens_radius"), focal_distance=f("focal_distance"),
+        shutter_open=f("shutter_open"), shutter_close=f("shutter_close"),
+        area=f("area"), resolution=tuple(int(x) for x in cam["resolution"]))

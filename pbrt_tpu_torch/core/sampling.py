@@ -1,0 +1,79 @@
+"""Monte Carlo warps, the power heuristic and tabulated distributions
+(counterpart of pbrt_tpu/core/sampling.py, the parts path tracing uses)."""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .types import PI_OVER_2, PI_OVER_4, f32, find_interval, safe_sqrt
+
+
+def concentric_sample_disk(u):
+    """Shirley–Chiu concentric disk warp, branch-free."""
+    ox = 2.0 * u[..., 0] - 1.0
+    oy = 2.0 * u[..., 1] - 1.0
+    zero = (ox == 0.0) & (oy == 0.0)
+    use_x = ox.abs() > oy.abs()
+    r = torch.where(use_x, ox, oy)
+    ratio_x = torch.where(ox != 0.0, oy / torch.where(ox != 0.0, ox, 1.0), 0.0)
+    ratio_y = torch.where(oy != 0.0, ox / torch.where(oy != 0.0, oy, 1.0), 0.0)
+    theta = torch.where(use_x, PI_OVER_4 * ratio_x,
+                        PI_OVER_2 - PI_OVER_4 * ratio_y)
+    p = torch.stack([r * torch.cos(theta), r * torch.sin(theta)], -1)
+    return torch.where(zero[..., None], 0.0, p)
+
+
+def cosine_sample_hemisphere(u):
+    d = concentric_sample_disk(u)
+    z = safe_sqrt(1.0 - d[..., 0] ** 2 - d[..., 1] ** 2)
+    return torch.stack([d[..., 0], d[..., 1], z], -1)
+
+
+def power_heuristic(nf, f_pdf, ng, g_pdf):
+    f = nf * f_pdf
+    g = ng * g_pdf
+    return (f * f) / torch.clamp(f * f + g * g, min=f32(1e-20))
+
+
+def _gather(arr, idx):
+    if arr.ndim == 1:
+        return arr[idx]
+    return torch.gather(arr, -1, idx[..., None])[..., 0]
+
+
+class Distribution1D(NamedTuple):
+    """Piecewise-constant pdf over [0,1): func (..., n), cdf (..., n+1),
+    func_int (...,)."""
+    func: torch.Tensor
+    cdf: torch.Tensor
+    func_int: torch.Tensor
+
+    @property
+    def count(self):
+        return self.func.shape[-1]
+
+    @staticmethod
+    def build(func):
+        func = torch.clamp(func.to(torch.float32), min=0.0)
+        n = func.shape[-1]
+        cdf = torch.cumsum(func, -1) / n
+        func_int = cdf[..., -1]
+        safe_int = torch.where(func_int > 0.0, func_int, 1.0)
+        ramp = torch.arange(1, n + 1, dtype=torch.float32, device=func.device) / n
+        cdf = torch.where(func_int[..., None] > 0.0, cdf / safe_int[..., None],
+                          ramp)
+        cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)
+        return Distribution1D(func, cdf, func_int)
+
+    def sample_continuous(self, u):
+        off = find_interval(self.cdf, u)
+        c0 = _gather(self.cdf, off)
+        c1 = _gather(self.cdf, off + 1)
+        f = _gather(self.func, off)
+        du = u - c0
+        denom = c1 - c0
+        du = torch.where(denom > 0.0, du / torch.where(denom > 0.0, denom, 1.0), du)
+        pdf = torch.where(self.func_int > 0.0,
+                          f / torch.clamp(self.func_int, min=f32(1e-20)), 0.0)
+        return (off.to(torch.float32) + du) / self.count, pdf, off

@@ -1,0 +1,72 @@
+"""Batched 3-vector math over (..., 3) tensors (counterpart of
+pbrt_tpu/core/vecmath.py)."""
+from __future__ import annotations
+
+import torch
+
+from .types import f32
+
+
+def dot(a, b):
+    return (a * b).sum(-1)
+
+
+def absdot(a, b):
+    return dot(a, b).abs()
+
+
+def cross(a, b):
+    ax, ay, az = a.unbind(-1)
+    bx, by, bz = b.unbind(-1)
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz,
+                        ax * by - ay * bx], -1)
+
+
+def length_squared(v):
+    return dot(v, v)
+
+
+def length(v):
+    return torch.sqrt(length_squared(v))
+
+
+def normalize(v):
+    return v / torch.clamp(length(v), min=f32(1e-20))[..., None]
+
+
+def face_forward(n, v):
+    return torch.where(dot(n, v)[..., None] < 0.0, -n, n)
+
+
+def reflect(wo, n):
+    return -wo + 2.0 * dot(wo, n)[..., None] * n
+
+
+def coordinate_system(v1):
+    """Orthonormal frame around unit v1 (branch-free Duff et al.)."""
+    s = torch.where(v1[..., 2] >= 0.0, 1.0, -1.0)
+    a = -1.0 / (s + v1[..., 2])
+    b = v1[..., 0] * v1[..., 1] * a
+    v2 = torch.stack([1.0 + s * v1[..., 0] * v1[..., 0] * a, s * b,
+                      -s * v1[..., 0]], -1)
+    v3 = torch.stack([b, s + v1[..., 1] * v1[..., 1] * a, -v1[..., 1]], -1)
+    return v2, v3
+
+
+def to_local(v, t, b, n):
+    return torch.stack([dot(v, t), dot(v, b), dot(v, n)], -1)
+
+
+def to_world(v, t, b, n):
+    return v[..., 0:1] * t + v[..., 1:2] * b + v[..., 2:3] * n
+
+
+def offset_ray_origin(p, n, d):
+    """Spawned-ray origin pushed off the surface along n toward d."""
+    eps = f32(1e-4) * torch.clamp(p.abs().amax(-1), min=1.0)
+    off = torch.where(dot(d, n) < 0.0, -eps, eps)
+    return p + off[..., None] * n
+
+
+def max_component(v):
+    return v.amax(-1)

@@ -1,0 +1,355 @@
+"""The tile×cluster tracer's two CUDA kernels, their wrappers and their
+plain PyTorch versions.
+
+coverage — replaces `coverage_tiles` (pbrt_tpu/kernels/cluster_pallas.py:303,
+    kernel `_make_coverage_kernel`). The slab test of every lane against
+    every cluster AABB; outputs the per-tile minimum entry t (nt, CPAD)
+    and per-lane coverage bits (nt, CPAD/32, TILE). Bound on the card:
+    operations — about 15 float32 ops per (lane, cluster) pair against
+    the 67 TFLOP/s non-tensor-core f32 rate; the bytes (rays in, covbits
+    out) are a few tens of MB. Design: one block per (tile, 128 clusters),
+    bounds in shared memory, warp-shuffle min for tnear, covbits ORed in
+    registers.
+
+closest — replaces `traverse_tiles` (cluster_pallas.py:876, default kernel
+    `_make_closest_kernel_lc`). Closest hit per lane over the tile's
+    covered clusters in ascending entry t, with fused shadow lanes
+    (anyhit > 0). Bound on the card: operations — 49 float32 ops per
+    Plücker slot test, times the slot tests this run's data needs (Σ over
+    rounds of joining lanes × CH·K, counted by the kernel). Design: one
+    block per tile; each round's CH clusters staged in shared memory,
+    slot-major and bank-padded; the lanes joining the round (covbit of a
+    round cluster, entry t <= best t, decided at round start — the LC
+    kernel's frozen mask) compacted into a list; a group of CH threads per
+    listed lane, one thread per cluster, reducing the (t|slot) key by warp
+    shuffles; early stop on the tile's max best t.
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+tensor it runs the plain version. The plain versions repeat the kernels'
+arithmetic op for op (the kernels are built with -fmad=false), so the two
+agree bit for bit on the card. Each wrapper counts its launches in its
+`launches` attribute.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+from ..core.types import INF, f32
+
+CH = 8                 # clusters per closest-hit round
+NF = 24                # features per triangle slot (kernels/csrc/cluster.cu)
+SLOT_MASK = 2047       # low mantissa bits of t that carry the slot
+COV_CLUSTERS = 128     # clusters per coverage block: CPAD is a multiple
+THREADS = 256          # coverage threads per block; TILE a multiple, <= 4x
+_BIG = f32(3e37)
+_INT_MAX = 0x7FFFFFFF
+
+_SRC = os.path.join(os.path.dirname(__file__), "csrc", "cluster.cu")
+_BUILD_DIR = os.path.join(os.path.dirname(__file__), "build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+_lock = threading.Lock()
+_lib = None
+build_seconds = None     # seconds the last build took (None: loaded from cache)
+
+
+def _nvcc():
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def library_path():
+    with open(_SRC, "rb") as f:
+        tag = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(_BUILD_DIR, f"libcluster-{tag}.so")
+
+
+def load_library():
+    """Build (at first use, keyed by a hash of the source and flags) and
+    load the kernel library."""
+    global _lib, build_seconds
+    with _lock:
+        if _lib is not None:
+            return _lib
+        so = library_path()
+        if not os.path.exists(so):
+            os.makedirs(_BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            t0 = time.perf_counter()
+            res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {_SRC}:\n{res.stderr}")
+            os.replace(tmp, so)
+            build_seconds = time.perf_counter() - t0
+        lib = ctypes.CDLL(so)
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        lib.pbrt_coverage.restype = i
+        lib.pbrt_coverage.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.pbrt_closest.restype = i
+        lib.pbrt_closest.argtypes = [p] * 11 + [i] * 6 + [p]
+        _lib = lib
+        return lib
+
+
+def _ptr(x):
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _stream(x):
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _need(x, name, dtype, shape, device):
+    if not torch.is_tensor(x):
+        raise TypeError(f"{name}: expected a tensor")
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if x.device != device:
+        raise ValueError(f"{name}: on {x.device}, expected {device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_tile(tile):
+    if tile % THREADS or not 0 < tile <= 4 * THREADS:
+        raise ValueError(f"tile={tile}: must be a multiple of {THREADS}, at most {4 * THREADS}")
+
+
+# ------------------------------------------------------------- coverage
+
+def coverage_plain(rays, bounds, n_live_tiles, n_clusters, tile, chunk=8):
+    """Plain PyTorch coverage, `chunk` tiles at a time (None: all at once).
+    Same arguments and results as `coverage`."""
+    nt = rays.shape[1] // tile
+    cpad = bounds.shape[1]
+    dev = rays.device
+    tnear = torch.full((nt, cpad), INF, dtype=torch.float32, device=dev)
+    covbits = torch.zeros((nt, cpad // 32, tile), dtype=torch.int32, device=dev)
+    live = min(int(n_live_tiles.reshape(-1)[0]), nt)
+    R = rays.view(8, nt, tile)
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    step = live if chunk is None else chunk
+    for s in range(0, live, max(step, 1)):
+        e = min(s + step, live)
+        inv, noi = [], []
+        for ax in range(3):
+            o = R[ax, s:e, :, None]
+            d = R[3 + ax, s:e, :, None]
+            dd = torch.where(d.abs() < f32(1e-12),
+                             torch.where(d < 0.0, f32(-1e-12), f32(1e-12)), d)
+            inv.append(1.0 / dd)
+            noi.append((-o) * inv[-1])
+        tn = torch.clamp(R[6, s:e, :, None], -_BIG, _BIG)
+        tf = torch.clamp(R[7, s:e, :, None], -_BIG, _BIG)
+        for ax in range(3):
+            lo = bounds[2 * ax] * inv[ax] + noi[ax]
+            hi = bounds[2 * ax + 1] * inv[ax] + noi[ax]
+            tn = torch.maximum(tn, torch.minimum(lo, hi))
+            tf = torch.minimum(tf, torch.maximum(lo, hi) * f32(1.0001))
+        hit = tn <= tf                                      # (n, tile, cpad)
+        tnear[s:e] = torch.where(hit, tn, INF).amin(1)
+        words = (hit.view(e - s, tile, cpad // 32, 32).to(torch.int64)
+                 << shifts).sum(-1)
+        words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
+        covbits[s:e] = words.to(torch.int32).permute(0, 2, 1)
+    tnear[:, n_clusters:] = INF
+    return tnear, covbits
+
+
+def coverage(rays, bounds, n_live_tiles, n_clusters, tile):
+    """Per-tile cluster coverage.
+
+    rays (8, nt·tile) f32 sorted planes ox oy oz dx dy dz tmin tmax;
+    bounds (6, CPAD) f32; n_live_tiles (1,) i32 — tiles at or past it
+    write INF and 0. Returns tnear (nt, CPAD) f32 (INF where no lane
+    enters, and in columns >= n_clusters) and covbits (nt, CPAD/32, tile)
+    i32."""
+    dev = rays.device
+    _check_tile(tile)
+    if rays.dim() != 2 or rays.shape[0] != 8 or rays.shape[1] % tile:
+        raise ValueError(f"rays: shape {tuple(rays.shape)}, expected (8, nt*{tile})")
+    nt = rays.shape[1] // tile
+    cpad = bounds.shape[-1]
+    if cpad % COV_CLUSTERS or not 0 < n_clusters <= cpad:
+        raise ValueError(f"bounds width {cpad} must be a multiple of {COV_CLUSTERS} "
+                         f"holding {n_clusters} clusters")
+    _need(rays, "rays", torch.float32, (8, nt * tile), dev)
+    _need(bounds, "bounds", torch.float32, (6, cpad), dev)
+    _need(n_live_tiles, "n_live_tiles", torch.int32, (1,), dev)
+    if dev.type != "cuda":
+        return coverage_plain(rays, bounds, n_live_tiles, n_clusters, tile)
+    lib = load_library()
+    tnear = torch.empty((nt, cpad), dtype=torch.float32, device=dev)
+    covbits = torch.empty((nt, cpad // 32, tile), dtype=torch.int32, device=dev)
+    err = lib.pbrt_coverage(_ptr(rays), _ptr(bounds), _ptr(n_live_tiles),
+                            _ptr(tnear), _ptr(covbits), nt, tile, cpad,
+                            n_clusters, _stream(rays))
+    if err:
+        raise RuntimeError(f"coverage kernel launch failed: cudaError {err}")
+    coverage.launches += 1
+    return tnear, covbits
+
+
+coverage.launches = 0
+
+
+# ---------------------------------------------------------- closest hit
+
+def _slot_test(feat, ox, oy, oz, dx, dy, dz, mx, my, mz):
+    """Plücker volumes, n·d and the plane numerator for every lane
+    against every slot of the round; the kernel's arithmetic order."""
+    F = lambda i: feat[:, i, None, :]   # noqa: E731  (n, 1, slots)
+
+    def pl(b):
+        return (((((dx * F(b) + dy * F(b + 1)) + dz * F(b + 2)) + mx * F(b + 3))
+                 + my * F(b + 4)) + mz * F(b + 5))
+
+    nd = (dx * F(18) + dy * F(19)) + dz * F(20)
+    tnum = (((-F(18)) * ox + (-F(19)) * oy) + (-F(20)) * oz) + F(21)
+    return pl(0), pl(6), pl(12), nd, tnum
+
+
+def closest_plain(packed, rays, anyhit, corder, tnear, counts, covbits, tile,
+                  slot_tests=None, chunk=8):
+    """Plain PyTorch closest hit, tiles in lock-step by round, `chunk`
+    tiles at a time (None: all live tiles at once). Same arguments and
+    results as `closest`."""
+    dev = rays.device
+    nt = rays.shape[1] // tile
+    c, _, k = packed.shape
+    W = corder.shape[1]
+    chk = CH * k
+    R = rays.view(8, nt, tile)
+    tmin = torch.clamp(R[6], -_BIG, _BIG)
+    t_best = torch.clamp(R[7], -_BIG, _BIG).clone()
+    tb = torch.stack([t_best, torch.zeros_like(t_best), torch.zeros_like(t_best)], 1)
+    slot = torch.full((nt, tile), -1, dtype=torch.int32, device=dev)
+    ah = (anyhit.view(nt, tile) > 0.0) if anyhit is not None else \
+        torch.zeros((nt, tile), dtype=torch.bool, device=dev)
+    n_rounds = (counts.to(torch.int64) + CH - 1) // CH
+    dead = n_rounds == 0
+    tb[dead, 0] = R[7][dead]
+    done = dead.clone()
+    slot_iota = torch.arange(chk, dtype=torch.int32, device=dev)
+    ox, oy, oz, dx, dy, dz = (R[i] for i in range(6))
+    mx = oy * dz - oz * dy
+    my = oz * dx - ox * dz
+    mz = ox * dy - oy * dx
+    for r in range(int(n_rounds.max()) if nt else 0):
+        act = torch.nonzero(~done & (r < n_rounds))[:, 0]
+        if act.numel() == 0:
+            break
+        step = act.numel() if chunk is None else chunk
+        for a0 in range(0, act.numel(), step):
+            idx = act[a0:a0 + step]
+            cids = corder[idx, r * CH:(r + 1) * CH].to(torch.int64)   # (n, CH)
+            tns = tnear[idx, r * CH:(r + 1) * CH]
+            tbest = t_best[idx]                                       # (n, tile)
+            words = covbits[idx[:, None], cids // 32]                 # (n, CH, tile)
+            bits = ((words >> (cids % 32).to(torch.int32)[..., None]) & 1) != 0
+            mask = (bits & (tbest[:, None, :] >= tns[..., None])).any(1)
+            if slot_tests is not None:
+                slot_tests += mask.sum() * chk
+            feat = packed[cids].permute(0, 2, 1, 3).reshape(-1, NF, chk)
+            lane = lambda a: a[idx][..., None]   # noqa: E731  (n, tile, 1)
+            w0, w1, w2, nd, tnum = _slot_test(feat, lane(ox), lane(oy), lane(oz),
+                                              lane(dx), lane(dy), lane(dz),
+                                              lane(mx), lane(my), lane(mz))
+            hm = torch.minimum(torch.minimum(w0 * nd, w1 * nd), w2 * nd)
+            t = tnum * (1.0 / nd)
+            ok = (hm >= 0.0) & (t > lane(tmin))
+            key = torch.where(ok, (t.view(torch.int32) & ~SLOT_MASK) | slot_iota,
+                              _INT_MAX)
+            kmin = key.amin(-1)                                       # (n, tile)
+            tj = (kmin & ~SLOT_MASK).view(torch.float32)
+            upd = mask & (tj < tbest)
+            # (lanes without a candidate carry INT_MAX: clamp their gather)
+            s = torch.clamp((kmin & SLOT_MASK).to(torch.int64), max=chk - 1)[..., None]
+            pick = lambda a: torch.gather(a, -1, s)[..., 0]   # noqa: E731
+            s_nd, s_tnum = pick(nd), pick(tnum)
+            s_w0, s_w1, s_w2 = pick(w0), pick(w1), pick(w2)
+            s_t = s_tnum / torch.where(s_nd.abs() > f32(1e-12), s_nd, f32(1e-12))
+            s_sum = (s_w0 + s_w1) + s_w2
+            inv = 1.0 / torch.where(s_sum.abs() > f32(1e-30), s_sum, f32(1e-30))
+            jwin = s[..., 0] // k
+            gslot = torch.gather(cids, 1, jwin) * k + s[..., 0] % k
+            cand = torch.stack([s_t, s_w2 * inv, s_w0 * inv], 1)
+            tb[idx] = torch.where(upd[:, None], cand, tb[idx])
+            slot[idx] = torch.where(upd, gslot.to(torch.int32), slot[idx])
+            t_best[idx] = torch.where(upd, torch.where(ah[idx], -1.0, tj), tbest)
+        nxt = min((r + 1) * CH, W - 1)
+        done[act] = tnear[act, nxt] >= t_best[act].amax(1)
+    return tb[:, 0].contiguous(), slot, tb[:, 1:].contiguous()
+
+
+def closest(packed, rays, anyhit, corder, tnear, counts, covbits, tile,
+            slot_tests=None):
+    """Closest hit over each tile's covered clusters.
+
+    packed (C, 24, K) f32; rays (8, nt·tile) f32; anyhit (nt·tile,) f32
+    or None (lanes > 0 are shadow rays: occluded ⇔ slot >= 0); corder
+    (nt, W) i32 / tnear (nt, W) f32 per-tile cluster order, ascending entry
+    t, W a multiple of CH; counts (nt,) i32 covered clusters per tile;
+    covbits (nt, CPAD/32, tile) i32. Returns t (nt, tile) f32 exact plane
+    t, slot (nt, tile) i32 GLOBAL slot cluster_id·K + lane or -1, bary
+    (nt, 2, tile) f32 (b1, b2). `slot_tests` (1,) int64, when given,
+    accumulates the number of Plücker slot tests run."""
+    dev = rays.device
+    _check_tile(tile)
+    if rays.dim() != 2 or rays.shape[0] != 8 or rays.shape[1] % tile:
+        raise ValueError(f"rays: shape {tuple(rays.shape)}, expected (8, nt*{tile})")
+    nt = rays.shape[1] // tile
+    c, nf, k = packed.shape
+    W = corder.shape[1] if corder.dim() == 2 else -1
+    if nf != NF or CH * k > SLOT_MASK + 1 or W % CH:
+        raise ValueError(f"packed (C, {NF}, K) with {CH}·K <= {SLOT_MASK + 1} and "
+                         f"corder width a multiple of {CH} required")
+    nb32 = covbits.shape[1] if covbits.dim() == 3 else -1
+    _need(packed, "packed", torch.float32, (c, NF, k), dev)
+    _need(rays, "rays", torch.float32, (8, nt * tile), dev)
+    if anyhit is not None:
+        _need(anyhit, "anyhit", torch.float32, (nt * tile,), dev)
+    _need(corder, "corder", torch.int32, (nt, W), dev)
+    _need(tnear, "tnear", torch.float32, (nt, W), dev)
+    _need(counts, "counts", torch.int32, (nt,), dev)
+    _need(covbits, "covbits", torch.int32, (nt, nb32, tile), dev)
+    if slot_tests is not None:
+        _need(slot_tests, "slot_tests", torch.int64, (1,), dev)
+    if dev.type != "cuda":
+        return closest_plain(packed, rays, anyhit, corder, tnear, counts,
+                             covbits, tile, slot_tests)
+    lib = load_library()
+    t_out = torch.empty((nt, tile), dtype=torch.float32, device=dev)
+    slot = torch.empty((nt, tile), dtype=torch.int32, device=dev)
+    bary = torch.empty((nt, 2, tile), dtype=torch.float32, device=dev)
+    null = ctypes.c_void_p(0)
+    err = lib.pbrt_closest(_ptr(packed), _ptr(rays),
+                           null if anyhit is None else _ptr(anyhit), _ptr(corder),
+                           _ptr(tnear), _ptr(counts), _ptr(covbits), _ptr(t_out),
+                           _ptr(slot), _ptr(bary),
+                           null if slot_tests is None else _ptr(slot_tests),
+                           nt, tile, W, nb32, k, CH, _stream(rays))
+    if err:
+        raise RuntimeError(f"closest-hit kernel launch failed: cudaError {err}")
+    closest.launches += 1
+    return t_out, slot, bary
+
+
+closest.launches = 0

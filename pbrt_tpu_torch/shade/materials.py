@@ -1,0 +1,183 @@
+"""Material table and wavefront BSDF dispatch for MAT_MATTE and
+MAT_PLASTIC (counterpart of pbrt_tpu/shade/materials.py). The table keeps
+one `kind` per material; each kind present in the scene is evaluated
+under a lane mask."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..core import vecmath as vm
+from ..core.types import f32
+from . import bxdf
+
+MAT_MATTE = 0
+MAT_PLASTIC = 1
+PORTED_KINDS = (MAT_MATTE, MAT_PLASTIC)
+
+
+@dataclass
+class MaterialTable:
+    kind: torch.Tensor            # (M,) int64
+    kd: torch.Tensor              # (M, 3)
+    ks: torch.Tensor              # (M, 3)
+    roughness: torch.Tensor       # (M, 2)
+    eta: torch.Tensor             # (M,)
+    sigma: torch.Tensor           # (M,) Oren–Nayar sigma, degrees
+    remap_roughness: torch.Tensor  # (M,) bool
+    kd_tex: torch.Tensor          # (M,) int64 texture id or -1
+    kinds_present: tuple = ()
+    tex_channels: tuple = ()      # channels with any texture: ("kd",) or ()
+
+
+def materials_from_numpy(arrs, device):
+    """MaterialTable from numpy columns: kind, kd, ks, roughness, eta,
+    sigma, remap_roughness, kd_tex (as the JAX package's build_materials
+    lays them out)."""
+    kind = np.asarray(arrs["kind"], np.int64)
+    bad = sorted(set(kind.tolist()) - set(PORTED_KINDS))
+    if bad:
+        raise NotImplementedError(f"material kinds {bad} are not ported yet")
+    kd_tex = np.asarray(arrs["kd_tex"], np.int64)
+    for ch in ("ks_tex", "kr_tex", "kt_tex", "roughness_tex", "sigma_tex", "bump_tex"):
+        if ch in arrs and (np.asarray(arrs[ch]) >= 0).any():
+            raise NotImplementedError(f"texture channel {ch} is not ported yet")
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), device=device).to(dt)  # noqa: E731
+    return MaterialTable(kind=t(kind, torch.int64), kd=t(arrs["kd"]), ks=t(arrs["ks"]),
+                         roughness=t(arrs["roughness"]), eta=t(arrs["eta"]),
+                         sigma=t(arrs["sigma"]),
+                         remap_roughness=t(arrs["remap_roughness"], torch.bool),
+                         kd_tex=t(kd_tex, torch.int64),
+                         kinds_present=tuple(sorted(set(kind.tolist()))),
+                         tex_channels=("kd",) if (kd_tex >= 0).any() else ())
+
+
+def build_materials(rows, device):
+    """Rows as the JAX package's SceneBuilder records them (dicts with
+    kind, kd, ks, roughness, eta, sigma, remap_roughness, kd_tex)."""
+    m = len(rows)
+
+    def col(key, default, shape=()):
+        out = np.zeros((m,) + shape, np.float32)
+        for i, r in enumerate(rows):
+            v = r.get(key, default)
+            out[i] = np.broadcast_to(np.asarray(v, np.float32), shape) if shape else v
+        return out
+
+    return materials_from_numpy(dict(
+        kind=[int(r["kind"]) for r in rows], kd=col("kd", 0.5, (3,)),
+        ks=col("ks", 0.0, (3,)), roughness=col("roughness", 0.0, (2,)),
+        eta=col("eta", 1.5), sigma=col("sigma", 0.0),
+        remap_roughness=[bool(r.get("remap_roughness", True)) for r in rows],
+        kd_tex=[r.get("kd_tex", -1) for r in rows]), device)
+
+
+@dataclass
+class LaneParams:
+    """Per-lane resolved material parameters."""
+    kind: torch.Tensor
+    kd: torch.Tensor
+    ks: torch.Tensor
+    ax: torch.Tensor
+    ay: torch.Tensor
+    eta: torch.Tensor
+    sigma: torch.Tensor
+
+
+def resolve(mats: MaterialTable, mid, uv=None, p=None, textures=None, fp=None):
+    """Gather per-lane parameters for material ids `mid`, applying the
+    kd texture where one is set; `fp` is the ray-cone footprint in uv."""
+    mid = torch.clamp(mid, min=0)
+    kd = mats.kd[mid]
+    if textures is not None and uv is not None and "kd" in mats.tex_channels:
+        from . import textures as texmod
+        kd = texmod.apply_tex(textures, mats.kd_tex[mid], uv, p, kd, fp=fp)
+    rough = mats.roughness[mid]
+    remap = mats.remap_roughness[mid]
+    ax = torch.where(remap, bxdf.roughness_to_alpha(rough[..., 0]), rough[..., 0])
+    ay = torch.where(remap, bxdf.roughness_to_alpha(rough[..., 1]), rough[..., 1])
+    return LaneParams(kind=mats.kind[mid], kd=kd, ks=mats.ks[mid], ax=ax, ay=ay,
+                      eta=mats.eta[mid], sigma=mats.sigma[mid])
+
+
+def _fresnel_rgb(eta):
+    def fr(c):
+        return bxdf.fresnel_dielectric(c, torch.ones_like(eta), eta)[..., None].expand(
+            *c.shape, 3)
+    return fr
+
+
+def _matte_f(lp, wo, wi):
+    return bxdf.oren_nayar_f(lp.kd, lp.sigma, wo, wi)
+
+
+def _matte_pdf(lp, wo, wi):
+    return bxdf.lambertian_pdf(wo, wi)
+
+
+def _matte_sample(lp, wo, u_lobe, u2):
+    wi, pdf = bxdf.lambertian_sample(wo, u2)
+    return wi, _matte_f(lp, wo, wi), pdf
+
+
+def _plastic_f(lp, wo, wi):
+    return bxdf.lambertian_f(lp.kd, wo, wi) + bxdf.microfacet_reflection_f(
+        lp.ks, lp.ax, lp.ay, _fresnel_rgb(lp.eta), wo, wi)
+
+
+def _plastic_pdf(lp, wo, wi):
+    return 0.5 * (bxdf.lambertian_pdf(wo, wi)
+                  + bxdf.microfacet_reflection_pdf(lp.ax, lp.ay, wo, wi))
+
+
+def _plastic_sample(lp, wo, u_lobe, u2):
+    use_spec = u_lobe < 0.5
+    wi_d, _ = bxdf.lambertian_sample(wo, u2)
+    wh = bxdf.ggx_sample_wh(lp.ax, lp.ay, wo, u2)
+    wi = torch.where(use_spec[..., None], vm.reflect(wo, wh), wi_d)
+    ok = bxdf.same_hemisphere(wo, wi)
+    return (wi, torch.where(ok[..., None], _plastic_f(lp, wo, wi), 0.0),
+            torch.where(ok, _plastic_pdf(lp, wo, wi), 0.0))
+
+
+_F = {MAT_MATTE: _matte_f, MAT_PLASTIC: _plastic_f}
+_PDF = {MAT_MATTE: _matte_pdf, MAT_PLASTIC: _plastic_pdf}
+_SAMPLE = {MAT_MATTE: _matte_sample, MAT_PLASTIC: _plastic_sample}
+
+
+def evaluate_f(lp: LaneParams, kinds_present, wo, wi):
+    """BSDF value in the local frame; masked over the kinds present."""
+    out = torch.zeros_like(wo)
+    for k in kinds_present:
+        out = torch.where((lp.kind == k)[..., None], _F[k](lp, wo, wi), out)
+    return out
+
+
+def pdf(lp: LaneParams, kinds_present, wo, wi):
+    out = torch.zeros_like(wo[..., 0])
+    for k in kinds_present:
+        out = torch.where(lp.kind == k, _PDF[k](lp, wo, wi), out)
+    return out
+
+
+def sample(lp: LaneParams, kinds_present, wo, u_lobe, u2):
+    """Returns (wi, f, pdf, is_specular, is_transmission); neither
+    ported kind has delta or transmission lobes."""
+    wi = torch.zeros_like(wo)
+    f = torch.zeros_like(wo)
+    pdf_out = torch.zeros_like(wo[..., 0])
+    for k in kinds_present:
+        mask = lp.kind == k
+        wi_k, f_k, pdf_k = _SAMPLE[k](lp, wo, u_lobe, u2)
+        wi = torch.where(mask[..., None], wi_k, wi)
+        f = torch.where(mask[..., None], f_k, f)
+        pdf_out = torch.where(mask, pdf_k, pdf_out)
+    no = torch.zeros_like(pdf_out, dtype=torch.bool)
+    return wi, f, pdf_out, no, no
+
+
+def eta_scale_on_transmit(lp: LaneParams, wo_z):
+    eta = lp.eta
+    return torch.where(wo_z > 0.0, eta * eta, 1.0 / torch.clamp(eta * eta, min=f32(1e-8)))

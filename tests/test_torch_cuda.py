@@ -1,0 +1,80 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Imports neither JAX nor the JAX package, so it runs on a machine
+with a GPU and no JAX:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -q
+
+Without a CUDA device each test skips (the kernels have no CPU mode)."""
+import numpy as np
+import pytest
+import torch
+
+from pbrt_tpu_torch.geom import cluster as tcl
+from pbrt_tpu_torch.kernels import cluster_cuda as tkern
+
+TILE = 256
+
+
+def _soup_and_rays(seed):
+    r = np.random.RandomState(seed)
+    centers = r.rand(600, 3) * 10
+    verts = (centers[:, None] + 0.5 * (r.rand(600, 3, 3) - 0.5)).reshape(-1, 3)
+    idx = np.arange(len(verts)).reshape(-1, 3)
+    n = 3000
+    o = r.rand(n, 3) * 10
+    d = r.randn(n, 3)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_max = np.where(r.rand(n) < 0.2, -1.0, np.where(r.rand(n) < 0.5, np.inf, 4.0))
+    flag = (r.rand(n) < 0.5).astype(np.float32)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")  # noqa: E731
+    return (verts.astype(np.float32), idx.astype(np.int32), f(o), f(d),
+            f(np.full(n, 1e-4)), f(t_max), f(flag))
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [21, 22])
+def test_kernels_equal_plain_versions(card, seed):
+    verts, idx, o, d, t_min, t_max, flag = _soup_and_rays(seed)
+    cs = tcl.build_clusters(verts, idx, "cuda")
+    _, rays, flag_s = tcl.prepare(cs, o, d, t_min, t_max, TILE, flag)
+    n_live = int((rays[7] > rays[6]).sum())
+    nlt = torch.tensor([-(-n_live // TILE)], dtype=torch.int32, device="cuda")
+    launches = (tkern.coverage.launches, tkern.closest.launches)
+    tn, cb = tkern.coverage(rays, cs.bounds, nlt, cs.n_clusters, TILE)
+    ptn, pcb = tkern.coverage_plain(rays, cs.bounds, nlt, cs.n_clusters, TILE)
+    assert torch.equal(tn, ptn) and torch.equal(cb, pcb)
+    corder, tnear, counts, covbits = tcl.tile_cluster_order(cs, rays, TILE)
+    args = (cs.packed, rays, flag_s, corder, tnear, counts, covbits, TILE)
+    kt, pt = (torch.zeros(1, dtype=torch.int64, device="cuda") for _ in range(2))
+    for a, b in zip(tkern.closest(*args, slot_tests=kt),
+                    tkern.closest_plain(*args, slot_tests=pt)):
+        assert torch.equal(a, b)
+    assert int(kt) == int(pt) > 0
+    assert (tkern.coverage.launches, tkern.closest.launches) == \
+        (launches[0] + 2, launches[1] + 1)
+
+
+@pytest.mark.cuda
+def test_gather_packed_exact_on_the_card(card):
+    """Bit patterns (NaN, infinities, denormals, int64 words) survive the
+    wavefront-compaction gather on the card."""
+    from pbrt_tpu_torch.integrate import path as tpath
+    r = np.random.RandomState(5)
+    n = 999
+    f = r.randn(n, 3).astype(np.float32)
+    f[:4, 0] = [np.nan, np.inf, -np.inf, 1e-42]
+    ints = r.randint(-2 ** 62, 2 ** 62, n, dtype=np.int64)
+    arrays = [torch.as_tensor(f, device="cuda"), torch.as_tensor(ints, device="cuda"),
+              torch.as_tensor(r.rand(n) < 0.5, device="cuda")]
+    order = torch.as_tensor(r.permutation(n)[:700], device="cuda")
+    for got, a in zip(tpath._gather_packed(order, arrays), arrays):
+        want = a[order]
+        if a.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        assert torch.equal(got, want)

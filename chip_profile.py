@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of one bench frame goes, on the GPU.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [path|direct|ao ...]
 
-Renders the bench frame of chip_smoke.py (512×512, depth 5, 1 spp,
-zerotwo, compact_from=1) through pbrt_tpu_torch: one warm-up, three frames
-timed with the host clock around torch.cuda.synchronize(), then one frame
-under torch.profiler. Prints the frame time, the device-busy share (sum
-of GPU kernel time over the profiled frame's wall time), the time of the
-two CUDA kernels, the count of GPU kernel launches, and the top ops by
+Renders the bench frames of chip_smoke.py (512×512, 1 spp, zerotwo; path
+at depth 5 with compact_from=1, direct lighting with strategy "one",
+ambient occlusion with 4 cosine samples; path alone by default) through
+pbrt_tpu_torch: for each, one warm-up, three frames timed with the host
+clock around torch.cuda.synchronize(), then one frame under
+torch.profiler. Prints the frame time, the device-busy share (sum of GPU
+kernel time over the profiled frame's wall time), the time of the CUDA
+tracing kernels, the count of GPU kernel launches, and the top ops by
 device time and by count.
 Needs a GPU; prints the card's name and power limit.
 """
@@ -22,11 +24,10 @@ FRAMES = 3
 
 def main():
     import torch
-    from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         sys.exit("chip_profile.py needs a GPU")
     from pbrt_tpu_torch.core import samplers as smp
-    from pbrt_tpu_torch.integrate import driver, path
+    from pbrt_tpu_torch.integrate import ao, direct, driver, path
     from pbrt_tpu_torch.kernels import cluster_cuda as kern
     from pbrt_tpu_torch.scenes import bench_camera, bench_scene
 
@@ -42,11 +43,19 @@ def main():
     cfg = driver.RenderConfig(width=res, height=res, spp=1, max_depth=5,
                               sampler=smp.SamplerConfig(kind="zerotwo", spp=1))
     pid, sid = driver.lane_ids(cfg, 0, 1, dev)
-    li = path.make_li(cfg, camera=cam, compact_from=1, return_stats=True)
+    makers = {"path": lambda: path.make_li(cfg, camera=cam, compact_from=1,
+                                           return_stats=True),
+              "direct": lambda: direct.make_li(cfg, "one", return_stats=True),
+              "ao": lambda: ao.make_li(cfg, True, 4, return_stats=True)}
+    for name in sys.argv[1:] or ["path"]:
+        profile_frame(torch, driver, scene, cam, cfg, pid, sid, name, makers[name]())
+
+
+def profile_frame(torch, driver, scene, cam, cfg, pid, sid, name, li):
+    from torch.profiler import ProfilerActivity, profile
 
     def frame():
-        (rad, stats), _ = driver.render_lanes(scene, cam, cfg, li, pid, sid)
-        return rad, stats
+        return driver.render_lanes(scene, cam, cfg, li, pid, sid)[0]
 
     frame()
     torch.cuda.synchronize()
@@ -56,8 +65,8 @@ def main():
         _, stats = frame()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    rays = float(stats["rays_traced"])
-    print(f"frame_ms={[round(t, 3) for t in times]} rays_per_frame={rays:.0f} "
+    rays = float(stats["rays_traced"])    # each integrator counts its own
+    print(f"[{name}] frame_ms={[round(t, 3) for t in times]} rays_per_frame={rays:.0f} "
           f"mrays_per_s={rays / (sum(times) / len(times) / 1e3) / 1e6:.3f}", flush=True)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -70,16 +79,16 @@ def main():
     busy_ms = sum(e.device_time for e in dev_kernels) / 1e3
     ours = {}
     for e in dev_kernels:
-        for k in ("coverage_kernel", "closest_kernel"):
+        for k in ("coverage_kernel", "closest_kernel", "occluded_kernel"):
             if k in e.name:
                 c = ours.setdefault(k, [0, 0.0])
                 c[0] += 1
                 c[1] += e.device_time / 1e3
-    print(f"profiled_frame_wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
+    print(f"[{name}] profiled_frame_wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
           f"device_busy_share={busy_ms / wall_ms:.4f} gpu_kernel_launches={len(dev_kernels)}",
           flush=True)
     for k, (n, ms) in ours.items():
-        print(f"{k}: launches={n} device_ms={ms:.3f}", flush=True)
+        print(f"[{name}] {k}: launches={n} device_ms={ms:.3f}", flush=True)
     averages = prof.key_averages()
     print(averages.table(sort_by="self_device_time_total", row_limit=40), flush=True)
     print(averages.table(sort_by="count", row_limit=30), flush=True)

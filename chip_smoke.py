@@ -11,10 +11,21 @@ Phases, each printing one line with its elapsed seconds:
      bench scene's primary rays and on one fused bounce wavefront (about
      20% dead lanes, half shadow lanes), the plain version on at most 32
      tiles; kernel times by CUDA events;
-  5. a 64×64 depth-5 render through the kernels (card) and through the
-     plain versions (CPU), held to the pixel check of tests/test_oracle.py;
+  4b. the any-hit kernel against its plain version (exact occ, equal
+     slot-test counts) on the shadow wavefront that direct.li sends and
+     on the first occlusion wavefront that ao.li sends, both recorded
+     from a 512×512 frame;
+  5. a 64×64 depth-5 path render through the kernels (card) and through
+     the plain versions (CPU), held to the pixel check of
+     tests/test_oracle.py;
+  5b. the same for 64×64 direct-lighting and ambient-occlusion renders;
   6. the bench render, 512×512, depth 5, 1 spp, zerotwo, compact_from=1:
-     one warm-up and two timed frames with the launch counts.
+     one warm-up and two timed frames with the launch counts;
+  6b. the bench scene at 512×512, 1 spp with direct lighting (strategy
+     "one") and ambient occlusion (4 cosine samples), one warm-up and two
+     timed frames each, with the launch counts per frame;
+  7. the probe kernels (kernels/probes.py): the compaction probe at tiles
+     256 and 1,024 and the overhead probe, each against its plain version.
 Then one JSON line with each kernel's numbers, the nvidia-smi line, and
 the last line {"ok": true, "device": {...}}. Any failed check exits
 non-zero before that line.
@@ -107,9 +118,10 @@ def check_closest(kern, clmod, cs, rays, flag, tile, tag):
     import torch
     nt = rays.shape[1] // tile
     corder, tnear, counts, covbits = clmod.tile_cluster_order(cs, rays, tile)
-    tests = torch.zeros(1, dtype=torch.int64, device=rays.device)
+    tests, needed, ptests, pneeded, ktests, kneeded = (
+        torch.zeros(1, dtype=torch.int64, device=rays.device) for _ in range(6))
     t, slot, bary = kern.closest(cs.packed, rays, flag, corder, tnear, counts, covbits,
-                                 tile, slot_tests=tests)
+                                 tile, slot_tests=tests, needed_tests=needed)
     n_live = int((rays[7] > rays[6]).sum())
     sel, _ = pick_tiles(nt, (n_live + tile - 1) // tile)
     ti = torch.as_tensor(sel, device=rays.device)
@@ -117,10 +129,8 @@ def check_closest(kern, clmod, cs, rays, flag, tile, tag):
     fs = None if flag is None else flag.view(-1, tile)[ti].reshape(-1).contiguous()
     args = (cs.packed, rs, fs, corder[ti].contiguous(), tnear[ti].contiguous(),
             counts[ti].contiguous(), covbits[ti].contiguous(), tile)
-    ptests = torch.zeros(1, dtype=torch.int64, device=rays.device)
-    tp, sp, bp = kern.closest_plain(*args, slot_tests=ptests)
-    ktests = torch.zeros(1, dtype=torch.int64, device=rays.device)
-    kern.closest(*args, slot_tests=ktests)
+    tp, sp, bp = kern.closest_plain(*args, slot_tests=ptests, needed_tests=pneeded)
+    kern.closest(*args, slot_tests=ktests, needed_tests=kneeded)
     sk, tk, bk = slot[ti], t[ti], bary[ti]
     same = sk == sp
     frac = float(same.float().mean())
@@ -135,20 +145,132 @@ def check_closest(kern, clmod, cs, rays, flag, tile, tag):
     log(f"closest[{tag}]", tiles=nt, compared_tiles=len(sel),
         slot_agreement=f"{frac:.6f}", slot_mismatches=int((~same).sum()),
         t_mismatches=t_bad, bary_mismatches=b_bad, bit_exact=exact, max_abs_err=err,
-        slot_tests_subset_kernel=int(ktests), slot_tests_subset_plain=int(ptests))
+        slot_tests_subset_kernel=int(ktests), slot_tests_subset_plain=int(ptests),
+        needed_tests_subset_kernel=int(kneeded), needed_tests_subset_plain=int(pneeded),
+        slot_tests=int(tests), needed_tests=int(needed))
     if frac < 0.9999 or t_bad or b_bad:
         fail(f"closest[{tag}]: kernel and plain version disagree")
     ms = cuda_ms(lambda: kern.closest(cs.packed, rays, flag, corder, tnear, counts,
                                       covbits, tile), 10)
     kms = cuda_ms(lambda: kern.closest(*args), 10)
     pms = cuda_ms(lambda: kern.closest_plain(*args), 1)
-    n_tests = int(tests)
-    ops = n_tests * 49        # 44 mul/add of the slot test, 3 sign products, 2 min
+    # the bound counts the tests the function needs, not those the kernel runs
+    ops = int(needed) * 49    # 44 mul/add of the slot test, 3 sign products, 2 min
     nbytes = (cs.packed.numel() * 4 + rays.numel() * 4 + corder.numel() * 8
               + covbits.numel() * 4 + nt * tile * 16)
     return dict(ms=ms, subset_kernel_ms=kms, plain_ms=pms, plain_tiles=len(sel),
-                ops=ops, bytes=nbytes, tiles=nt, slot_tests=n_tests,
-                mean_count=float(counts.float().mean()), max_abs_err=err)
+                ops=ops, bytes=nbytes, tiles=nt, slot_tests=int(tests),
+                needed_tests=int(needed), mean_count=float(counts.float().mean()),
+                max_abs_err=err)
+
+
+def bound(ops, nbytes):
+    """(ms, what bounds it): the least time the card could take."""
+    t_ops, t_bytes = ops / H100_F32_FLOPS, nbytes / H100_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_occluded(kern, clmod, cs, o, d, t_min, t_max, tile, tag):
+    """Any-hit kernel vs its plain version on a tile subset of one
+    wavefront; returns numbers."""
+    import torch
+    _, rays, _ = clmod.prepare(cs, o, d, t_min, t_max, tile)
+    nt = rays.shape[1] // tile
+    corder, tnear, counts, covbits = clmod.tile_cluster_order(cs, rays, tile)
+    tests, needed, ptests, pneeded, ktests, kneeded = (
+        torch.zeros(1, dtype=torch.int64, device=rays.device) for _ in range(6))
+    occ = kern.occluded(cs.packed, rays, corder, tnear, counts, covbits, tile,
+                        slot_tests=tests, needed_tests=needed)
+    n_live = int((rays[7] > rays[6]).sum())
+    sel, _ = pick_tiles(nt, (n_live + tile - 1) // tile)
+    ti = torch.as_tensor(sel, device=rays.device)
+    args = (cs.packed, sub_rays(rays, sel, tile), corder[ti].contiguous(),
+            tnear[ti].contiguous(), counts[ti].contiguous(), covbits[ti].contiguous(), tile)
+    occ_p = kern.occluded_plain(*args, slot_tests=ptests, needed_tests=pneeded)
+    occ_k = kern.occluded(*args, slot_tests=ktests, needed_tests=kneeded)
+    mism = int((occ[ti] != occ_p).sum())
+    err = float((occ[ti].to(torch.float32) - occ_p.to(torch.float32)).abs().max())
+    log(f"occluded[{tag}]", tiles=nt, live_lanes=n_live, compared_tiles=len(sel),
+        occ_mismatches=mism, subset_rerun_mismatches=int((occ_k != occ_p).sum()),
+        occluded_share=f"{float(occ.float().sum()) / max(n_live, 1):.4f}",
+        slot_tests_subset_kernel=int(ktests), slot_tests_subset_plain=int(ptests),
+        needed_tests_subset_kernel=int(kneeded), needed_tests_subset_plain=int(pneeded),
+        slot_tests=int(tests), needed_tests=int(needed))
+    if (mism or not torch.equal(occ_k, occ_p) or int(ktests) != int(ptests)
+            or int(kneeded) != int(pneeded)):
+        fail(f"occluded[{tag}]: kernel and plain version disagree")
+    full = (cs.packed, rays, corder, tnear, counts, covbits, tile)
+    ms = cuda_ms(lambda: kern.occluded(*full), 10)
+    kms = cuda_ms(lambda: kern.occluded(*args), 10)
+    pms = cuda_ms(lambda: kern.occluded_plain(*args), 1)
+    # the bound counts the tests the function needs, not those the kernel runs
+    ops = int(needed) * 51    # the 49 of the slot test, two window compares
+    nbytes = (cs.packed.numel() * 4 + rays.numel() * 4 + corder.numel() * 4
+              + counts.numel() * 4 + covbits.numel() * 4 + nt * tile)
+    return dict(ms=ms, subset_kernel_ms=kms, plain_ms=pms, plain_tiles=len(sel),
+                ops=ops, bytes=nbytes, tiles=nt, slot_tests=int(tests),
+                needed_tests=int(needed), max_abs_err=err)
+
+
+def sent_wavefronts(clmod, run):
+    """The (o, d, t_min, t_max) of every any-hit query that run() sends
+    through geom.cluster.occluded, in order: the wavefronts an integrator
+    really traces."""
+    real, sent = clmod.occluded, []
+
+    def record(cs, o, d, t_min, t_max, tile):
+        sent.append((o, d, t_min, t_max))
+        return real(cs, o, d, t_min, t_max, tile)
+
+    clmod.occluded = record
+    try:
+        run()
+    finally:
+        clmod.occluded = real
+    return sent
+
+
+def check_probes(probes):
+    """Phase 7: both probes against their plain versions; the overhead
+    probe's µs per tile for each kind and cluster count."""
+    import torch
+    c_err = o_err = 0.0
+    for tile in (256, 1024):
+        mask, val = probes.compact_inputs(tile, "cuda")
+        out, slot = probes.compact(mask, val)
+        pout, pslot = probes.compact_plain(mask, val)
+        ok = torch.equal(out, pout) and torch.equal(slot, pslot)
+        c_err = max(c_err, float((out - pout).abs().max()),
+                    float((slot - pslot).abs().max()))
+        log("probe_compact", tile=tile, set_lanes=int(mask.sum()), equal=ok)
+        if not ok:
+            fail(f"compaction probe at tile {tile} disagrees with its plain version")
+    c_ms = cuda_ms(lambda: probes.compact(mask, val), 20)
+    c_pms = cuda_ms(lambda: probes.compact_plain(mask, val), 20)
+    sub = 8
+    over = {}
+    for kind in probes.KINDS:
+        for count in ((0,) if kind == "empty" else probes.COUNTS):
+            args = probes.overhead_inputs(count, "cuda")
+            out = probes.overhead(kind, *args, probes.TILE)
+            if kind == "stage+compute":     # held to its plain version on `sub` tiles
+                packed, planes, corder, counts = args
+                small = (packed, planes.view(8, -1, probes.TILE)[:, :sub].reshape(8, -1)
+                         .contiguous(), corder[:sub].contiguous(), counts[:sub].contiguous())
+                plain = probes.overhead_plain(kind, *small, probes.TILE)
+                o_err = max(o_err, float((out[:sub] - plain).abs().max()))
+                if not torch.equal(out[:sub], plain):
+                    fail(f"overhead probe {kind} counts={count} disagrees with its plain version")
+                o_pms = cuda_ms(lambda: probes.overhead_plain(kind, *small, probes.TILE), 1)
+                o_kms = cuda_ms(lambda: probes.overhead(kind, *small, probes.TILE), 5)
+            ms = cuda_ms(lambda: probes.overhead(kind, *args, probes.TILE), 5)
+            over[(kind, count)] = ms
+            log("probe_overhead", kind=kind, counts=count, ms=f"{ms:.4f}",
+                us_per_tile=f"{ms * 1e3 / probes.NT:.4f}")
+    # the plain and subset times are those of the last (largest) count
+    return dict(compact_ms=c_ms, compact_plain_ms=c_pms, overhead=over,
+                compact_max_abs_err=c_err, overhead_max_abs_err=o_err,
+                overhead_plain_ms=o_pms, overhead_subset_kernel_ms=o_kms, plain_tiles=sub)
 
 
 def bounce_wavefront(scene, o, d, hit, seed=1):
@@ -201,7 +323,8 @@ def main():
         from pbrt_tpu_torch.geom import cluster as clmod
         from pbrt_tpu_torch.geom import scene as scenemod
         from pbrt_tpu_torch.scenes import bench_scene, bench_camera
-        from pbrt_tpu_torch.integrate import driver, path
+        from pbrt_tpu_torch.integrate import ao, direct, driver, path
+        from pbrt_tpu_torch.kernels import probes
         from pbrt_tpu_torch.core import samplers as smp
     except ImportError as e:
         fail(f"pbrt_tpu_torch not importable here ({e}); run from the repository root")
@@ -256,78 +379,136 @@ def main():
     cl_b = check_closest(kern, clmod, cs, rays_b, flag_s, tile, "fused_bounce")
     torch.cuda.synchronize()
 
-    # 5. 64×64 render: kernels on the card vs plain versions on the CPU
-    t0 = time.perf_counter()
+    # 4b. the any-hit kernel on the wavefronts direct.li and ao.li send
+    sent_d = sent_wavefronts(clmod, lambda: driver.render_lanes(
+        scene, cam, cfg, direct.make_li(cfg, "one"), pid, sid))
+    sent_a = sent_wavefronts(clmod, lambda: driver.render_lanes(
+        scene, cam, cfg, ao.make_li(cfg, True, 4), pid, sid))
+    if (len(sent_d), len(sent_a)) != (1, 4):
+        fail(f"any-hit queries sent: direct {len(sent_d)}, AO {len(sent_a)}; expected 1, 4")
+    oc_d = check_occluded(kern, clmod, cs, *sent_d[0], tile, "direct_shadow")
+    oc_a = check_occluded(kern, clmod, cs, *sent_a[0], tile, "ao")
+    torch.cuda.synchronize()
+
+    # 5, 5b. 64×64 renders: kernels on the card vs plain versions on the CPU
     small = 64
     cfg_s = driver.RenderConfig(width=small, height=small, spp=1, max_depth=5,
                                 sampler=smp.SamplerConfig(kind="zerotwo", spp=1))
     cam_g = bench_camera((small, small), dev)
-    img_k = driver.render(scene, cam_g, cfg_s, path.make_li(cfg_s, camera=cam_g,
-                                                            compact_from=1)).cpu().numpy()
     scene_c = bench_scene(6, "cpu")
     cam_c = bench_camera((small, small), "cpu")
-    img_p = driver.render(scene_c, cam_c, cfg_s, path.make_li(cfg_s, camera=cam_c,
-                                                              compact_from=1)).numpy()
-    frac, mdiff, ok = pixel_check(img_k, img_p)
-    log("render64", pixels_within_tol=f"{frac:.4f}", mean_diff=f"{mdiff:.3e}",
-        mean=f"{img_k.mean():.6f}", identical=bool(np.array_equal(img_k, img_p)),
-        seconds=f"{time.perf_counter() - t0:.2f}", passed=ok)
-    if not ok or not np.isfinite(img_k).all():
-        fail("64x64 render through the kernels disagrees with the plain versions")
-
-    # 6. the bench render
-    li = path.make_li(cfg, camera=cam, compact_from=1, return_stats=True)
-
-    def frame():
-        (rad, stats), wt = driver.render_lanes(scene, cam, cfg, li, pid, sid)
-        return rad, stats
-
-    frame()
-    torch.cuda.synchronize()
-    kern.coverage.launches = 0
-    kern.closest.launches = 0
-    frames, times, rays, img = 2, [], 0.0, None
-    for _ in range(frames):
-        torch.cuda.synchronize()
+    for tag, make in (
+            ("render64", lambda cam: path.make_li(cfg_s, camera=cam, compact_from=1)),
+            ("render64_direct", lambda cam: direct.make_li(cfg_s, "one")),
+            ("render64_ao", lambda cam: ao.make_li(cfg_s, True, 4))):
         t0 = time.perf_counter()
-        rad, stats = frame()
+        img_k = driver.render(scene, cam_g, cfg_s, make(cam_g)).cpu().numpy()
+        img_p = driver.render(scene_c, cam_c, cfg_s, make(cam_c)).numpy()
+        frac, mdiff, ok = pixel_check(img_k, img_p)
+        log(tag, pixels_within_tol=f"{frac:.4f}", mean_diff=f"{mdiff:.3e}",
+            mean=f"{img_k.mean():.6f}", identical=bool(np.array_equal(img_k, img_p)),
+            seconds=f"{time.perf_counter() - t0:.2f}", passed=ok)
+        if not ok or not np.isfinite(img_k).all():
+            fail(f"{tag}: the render through the kernels disagrees with the plain versions")
+
+    # 6, 6b. the bench renders, each with its launches counted per frame
+    kernels = {"coverage": kern.coverage, "closest": kern.closest,
+               "occluded": kern.occluded}
+    benches = (("bench", path.make_li(cfg, camera=cam, compact_from=1, return_stats=True),
+                {"coverage": 6, "closest": 6, "occluded": 0}),
+               ("bench_direct", direct.make_li(cfg, "one", return_stats=True),
+                {"coverage": 3, "closest": 2, "occluded": 1}),
+               ("bench_ao", ao.make_li(cfg, True, 4, return_stats=True),
+                {"coverage": 5, "closest": 1, "occluded": 4}))
+    frames, by_path = 2, {}
+    for tag, li, per_frame in benches:
+        def frame():
+            return driver.render_lanes(scene, cam, cfg, li, pid, sid)[0]
+
+        frame()
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        rays += float(stats["rays_traced"])
-        img = rad
-    launches = {"coverage": kern.coverage.launches, "closest": kern.closest.launches}
-    img = img.reshape(res, res, 3)
-    n_nan = int(torch.isnan(img).sum())
-    ms = [t * 1e3 for t in times]
-    occ = [round(float(x), 4) for x in stats["occupancy"]]
-    log("bench", resolution=f"{res}x{res}", depth=5, spp=1, frame_ms=ms,
-        mrays_per_s=f"{rays / sum(times) / 1e6:.3f}", rays_per_frame=rays / frames,
-        occupancy=occ, image_mean=f"{float(img.mean()):.6f}", nan=n_nan,
-        launches=launches)
-    if n_nan or not bool(torch.isfinite(img).all()) or tuple(img.shape) != (res, res, 3):
-        fail("bench image is not finite")
-    if launches["coverage"] != 6 * frames or launches["closest"] != 6 * frames:
-        fail(f"expected 6 launches of each kernel per frame, got {launches}")
+        for fn in kernels.values():
+            fn.launches = 0
+        times, img, stats = [], None, None
+        for _ in range(frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img, stats = frame()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        by_path[tag] = launches
+        img = img.reshape(res, res, 3)
+        n_nan = int(torch.isnan(img).sum())
+        rays = float(stats["rays_traced"])    # each integrator counts its own
+        ms = [t * 1e3 for t in times]
+        extra = {} if "occupancy" not in stats else {
+            "occupancy": [round(float(x), 4) for x in stats["occupancy"]]}
+        log(tag, resolution=f"{res}x{res}", spp=1, frame_ms=ms,
+            mrays_per_s=f"{rays * frames / sum(times) / 1e6:.3f}", rays_per_frame=rays,
+            **extra, image_mean=f"{float(img.mean()):.6f}", nan=n_nan, launches=launches)
+        if n_nan or not bool(torch.isfinite(img).all()) or tuple(img.shape) != (res, res, 3):
+            fail(f"{tag}: image is not finite")
+        want = {k: v * frames for k, v in per_frame.items()}
+        if launches != want:
+            fail(f"{tag}: expected launches {want} over {frames} frames, got {launches}")
 
-    def row(name, source, replaces, launch, c_primary, c_bounce, by):
-        c = c_bounce
-        bound_ms = max(c["ops"] / H100_F32_FLOPS, c["bytes"] / H100_HBM_BYTES) * 1e3
+    # 7. the probes, their launches counted over this phase
+    probes.compact.launches = probes.overhead.launches = 0
+    pr = check_probes(probes)
+    probe_launches = {"compact": probes.compact.launches,
+                      "overhead": probes.overhead.launches}
+    if not all(probe_launches.values()):
+        fail(f"a probe kernel never launched: {probe_launches}")
+
+    def total(name):
+        return sum(v[name] for v in by_path.values())
+
+    def row(name, replaces, c_primary, c, source="pbrt_tpu_torch/kernels/csrc/cluster.cu",
+            **extra):
+        bound_ms, by = bound(c["ops"], c["bytes"])
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=launch, max_abs_err=max(c_primary["max_abs_err"],
-                                                     c["max_abs_err"]),
-                    ms=c["ms"], plain_ms=c["plain_ms"],
-                    bound_ms=bound_ms, bound_by=by, library_ms=None,
-                    shape="fused_bounce", primary_ms=c_primary["ms"],
-                    subset_kernel_ms=c["subset_kernel_ms"], plain_tiles=c["plain_tiles"])
+                    launches=total(name),
+                    max_abs_err=max(c_primary["max_abs_err"], c["max_abs_err"]),
+                    ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=bound_ms, bound_by=by,
+                    library_ms=None,
+                    launches_by_path={k: v[name] for k, v in by_path.items()},
+                    subset_kernel_ms=c["subset_kernel_ms"], plain_tiles=c["plain_tiles"],
+                    **extra)
 
-    rows = [row("coverage", "pbrt_tpu_torch/kernels/csrc/cluster.cu",
-                "pbrt_tpu/kernels/cluster_pallas.py:303", launches["coverage"],
-                cov_p, cov_b, "operations"),
-            row("closest", "pbrt_tpu_torch/kernels/csrc/cluster.cu",
-                "pbrt_tpu/kernels/cluster_pallas.py:876", launches["closest"],
-                cl_p, cl_b, "operations")]
-    rows[1]["slot_tests"] = cl_b["slot_tests"]
-    rows[1]["slot_tests_primary"] = cl_p["slot_tests"]
+    rows = [row("coverage", "pbrt_tpu/kernels/cluster_pallas.py:303", cov_p, cov_b,
+                shape="fused_bounce", primary_ms=cov_p["ms"]),
+            row("closest", "pbrt_tpu/kernels/cluster_pallas.py:876", cl_p, cl_b,
+                shape="fused_bounce", primary_ms=cl_p["ms"], slot_tests=cl_b["slot_tests"],
+                needed_tests=cl_b["needed_tests"], slot_tests_primary=cl_p["slot_tests"],
+                needed_tests_primary=cl_p["needed_tests"]),
+            row("occluded", "pbrt_tpu/kernels/cluster_pallas.py:924", oc_d, oc_a,
+                shape="ao", direct_shadow_ms=oc_d["ms"],
+                direct_shadow_plain_ms=oc_d["plain_ms"],
+                direct_shadow_bound_ms=bound(oc_d["ops"], oc_d["bytes"])[0],
+                slot_tests=oc_a["slot_tests"], needed_tests=oc_a["needed_tests"],
+                slot_tests_direct_shadow=oc_d["slot_tests"],
+                needed_tests_direct_shadow=oc_d["needed_tests"])]
+    kind, count = "stage+compute", probes.COUNTS[-1]
+    o_bound, o_by = bound(probes.overhead_ops(kind, count), probes.overhead_bytes(kind, count))
+    rows.append(dict(name="overhead_probe", route="cuda",
+                     source="pbrt_tpu_torch/kernels/csrc/cluster.cu",
+                     replaces="profile_overhead.py:111", launches=probe_launches["overhead"],
+                     max_abs_err=pr["overhead_max_abs_err"],
+                     ms=pr["overhead"][(kind, count)],
+                     plain_ms=pr["overhead_plain_ms"], bound_ms=o_bound, bound_by=o_by,
+                     library_ms=None, shape=f"{kind} counts={count}",
+                     plain_tiles=pr["plain_tiles"],
+                     subset_kernel_ms=pr["overhead_subset_kernel_ms"],
+                     us_per_tile={f"{k} {c}": v * 1e3 / probes.NT
+                                  for (k, c), v in pr["overhead"].items()}))
+    c_bound, c_by = bound(0, 4 * 1024 * 4)     # mask, val in; out, slot out
+    rows.append(dict(name="compact_probe", route="cuda",
+                     source="pbrt_tpu_torch/kernels/csrc/cluster.cu",
+                     replaces="debug_lc_prim2.py:89", launches=probe_launches["compact"],
+                     max_abs_err=pr["compact_max_abs_err"], ms=pr["compact_ms"],
+                     plain_ms=pr["compact_plain_ms"],
+                     bound_ms=c_bound, bound_by=c_by, library_ms=None, shape="tile=1024"))
     print(json.dumps({"kernels": rows}), flush=True)
     log("done", total_seconds=f"{time.perf_counter() - T0:.1f}")
     print(smi_line, flush=True)

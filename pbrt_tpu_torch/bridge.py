@@ -39,11 +39,15 @@ def _clusters(c, device):
 def scene_from_numpy(tree, device=None, tile=clmod.TILE):
     """tree: dict with "tri", "clusters" (or None), "materials",
     "lights", "textures" (or None) sub-dicts of numpy arrays, plus
-    "world_center" and "world_radius"."""
+    "world_center" and "world_radius", and optionally "quad_count" and
+    "instance_count" (quadrics and instances are not ported: a scene with
+    either is refused)."""
     device = resolve_device(device)
     t = tree["tri"]
     if int(tree["lights"].get("env_index", -1)) >= 0:
         raise NotImplementedError("infinite lights are not ported yet")
+    if int(tree.get("quad_count", 0)) or int(tree.get("instance_count", 0)):
+        raise NotImplementedError("quadrics and instances are not ported yet")
     return Scene(
         tri=triangles_from_numpy(t["positions"], t["indices"], t["normals"], t["uvs"],
                                  t["has_normals"], t["material_id"], t["light_id"], device),

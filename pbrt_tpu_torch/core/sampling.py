@@ -6,7 +6,18 @@ from typing import NamedTuple
 
 import torch
 
-from .types import PI_OVER_2, PI_OVER_4, f32, find_interval, safe_sqrt
+from .types import INV_2PI, PI, PI_OVER_2, PI_OVER_4, f32, find_interval, safe_sqrt
+
+
+def uniform_sample_hemisphere(u):
+    z = u[..., 0]
+    r = safe_sqrt(1.0 - z * z)
+    phi = 2.0 * PI * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], -1)
+
+
+def uniform_hemisphere_pdf():
+    return INV_2PI
 
 
 def concentric_sample_disk(u):

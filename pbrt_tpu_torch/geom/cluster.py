@@ -3,8 +3,8 @@
 Triangles are grouped into K-slot clusters cut from the SAH BVH; rays are
 sorted by a (direction octant, origin Morton, direction Morton) key into
 tiles of TILE lanes; the coverage kernel finds, per tile, which clusters
-each lane enters and at what entry t; the closest-hit kernel walks each
-tile's clusters in ascending entry t. Both kernels live in
+each lane enters and at what entry t; the closest-hit and any-hit kernels
+walk each tile's clusters in ascending entry t. The kernels live in
 kernels/cluster_cuda.py; this module builds the clusters, sorts and pads
 the rays, orders each tile's cluster list and puts the results back in
 lane order.
@@ -235,12 +235,16 @@ def tile_cluster_order(cs: ClusterSet, rays, tile):
             counts.to(torch.int32), covbits)
 
 
+def _un(order, n, a):
+    """A sorted, padded kernel output back to lane order (n,)."""
+    out = torch.empty((n,), dtype=a.dtype, device=a.device)
+    out[order] = a.reshape(-1)[:n]
+    return out
+
+
 def _unsort(cs, order, n, t, slot, bary):
     """Sorted kernel outputs back to lane order: (hit, t, tri_idx, b1, b2)."""
-    def un(a):
-        out = torch.empty((n,), dtype=a.dtype, device=a.device)
-        out[order] = a.reshape(-1)[:n]
-        return out
+    un = lambda a: _un(order, n, a)   # noqa: E731
     s = un(slot).to(torch.int64)
     hit = s >= 0
     tid = cs.c_tri_id.reshape(-1)[torch.clamp(s, min=0)]
@@ -271,3 +275,12 @@ def intersect_occluded(cs: ClusterSet, o, d, t_min, t_max, o_sh, d_sh, tmin_sh,
                                  torch.cat([t_min, tmin_sh]),
                                  torch.cat([t_max, tmax_sh]), tile, flag)
     return (hit[:n], t[:n], tid[:n], b1[:n], b2[:n]), hit[n:]
+
+
+def occluded(cs: ClusterSet, o, d, t_min, t_max, tile=TILE):
+    """Any hit for rays o, d (N, 3): occ (N,) bool, true where a triangle
+    lies at t_min < t < t_max (counterpart of occluded_pallas)."""
+    order, rays, _ = prepare(cs, o, d, t_min, t_max, tile)
+    corder, tnear, counts, covbits = tile_cluster_order(cs, rays, tile)
+    occ = kern.occluded(cs.packed, rays, corder, tnear, counts, covbits, tile)
+    return _un(order, o.shape[0], occ)

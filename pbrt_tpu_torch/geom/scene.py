@@ -1,8 +1,11 @@
 """Scene and the top-level intersection queries for the triangle pool
-(counterpart of pbrt_tpu/geom/scene.py: intersect and
-intersect_occluded). With clusters the tile×cluster tracer runs, and
-each path bounce traces its extension and shadow rays in one fused
-launch; without clusters the brute-force tracers run."""
+(counterpart of pbrt_tpu/geom/scene.py: intersect, occluded and
+intersect_occluded). With clusters the tile×cluster tracer runs — each
+path bounce traces its extension and shadow rays in one fused launch, a
+standalone shadow query runs the any-hit kernel; without clusters the
+brute-force tracers run. Quadrics and instances are not ported: the
+scene holds triangles only, and bridge.scene_from_numpy refuses a scene
+that carries them."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -67,6 +70,21 @@ def intersect(scene: Scene, o, d, active=None) -> Hit:
     else:
         res = trimod.intersect_brute(scene.tri, o, d, t_min, t_max)
     return hit_from_triangles(scene, d, t_max, res)
+
+
+def occluded(scene: Scene, o, d, t_min=None, t_max=None, active=None):
+    """Any-hit (shadow) query for rays o, d (N, 3) with t in (t_min, t_max)
+    (defaults RAY_EPS and INF; scalars or (N,)). Dead lanes (`active`
+    false) get t_max = -1. Returns occ (N,) bool."""
+    n = o.shape[0]
+    f = dict(dtype=torch.float32, device=o.device)
+    t_min = torch.broadcast_to(torch.as_tensor(RAY_EPS if t_min is None else t_min, **f), (n,))
+    t_max = torch.broadcast_to(torch.as_tensor(INF if t_max is None else t_max, **f), (n,))
+    if active is not None:
+        t_max = torch.where(active, t_max, -1.0)
+    if scene.clusters is not None:
+        return clmod.occluded(scene.clusters, o, d, t_min, t_max, scene.tile)
+    return trimod.occluded_brute(scene.tri, o, d, t_min, t_max)
 
 
 def intersect_occluded(scene: Scene, o, d, o_sh, d_sh, tmax_sh, active=None,

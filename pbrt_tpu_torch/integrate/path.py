@@ -96,12 +96,8 @@ def li(scene, o, d, pixel_id, sample_idx, cfg, rr_start=3, return_stats=False,
     kinds = scene.materials.kinds_present
     shp = pixel_id.shape
     dev = o.device
-    n = pixel_id.numel()
-    n0 = n
-    pixel_id = pixel_id.reshape(n)
-    sample_idx = torch.broadcast_to(torch.as_tensor(sample_idx, device=dev), shp).reshape(n)
-    o = o.reshape(n, 3)
-    d = d.reshape(n, 3)
+    pixel_id, sample_idx, o, d = common.flat_lanes(pixel_id, sample_idx, o, d)
+    n = n0 = pixel_id.numel()
 
     def sample1(bounce, slot):
         return smp.sample_1d(cfg.sampler, pixel_id, sample_idx, smp.bounce_dim(bounce, slot))

@@ -1,4 +1,4 @@
-"""The tile×cluster tracer's two CUDA kernels, their wrappers and their
+"""The tile×cluster tracer's three CUDA kernels, their wrappers and their
 plain PyTorch versions.
 
 coverage — replaces `coverage_tiles` (pbrt_tpu/kernels/cluster_pallas.py:303,
@@ -15,14 +15,33 @@ closest — replaces `traverse_tiles` (cluster_pallas.py:876, default kernel
     `_make_closest_kernel_lc`). Closest hit per lane over the tile's
     covered clusters in ascending entry t, with fused shadow lanes
     (anyhit > 0). Bound on the card: operations — 49 float32 ops per
-    Plücker slot test, times the slot tests this run's data needs (Σ over
-    rounds of joining lanes × CH·K, counted by the kernel). Design: one
+    Plücker slot test, times the slot tests this run's data needs: K per
+    (lane, cluster) pair whose covbit is set and whose entry t is within
+    the lane's best t (`needed_tests`; the kernel runs about five times
+    as many, `slot_tests`, since a joining lane tests all CH·K slots of
+    the round). Design: one
     block per tile; each round's CH clusters staged in shared memory,
     slot-major and bank-padded; the lanes joining the round (covbit of a
     round cluster, entry t <= best t, decided at round start — the LC
     kernel's frozen mask) compacted into a list; a group of CH threads per
     listed lane, one thread per cluster, reducing the (t|slot) key by warp
     shuffles; early stop on the tile's max best t.
+
+occluded — replaces `occluded_tiles` (cluster_pallas.py:924, default
+    kernel `_make_anyhit_kernel_lc`). Any hit per lane: does a triangle of
+    a covered cluster lie at tmin < t < tmax, the exact window (the fused
+    shadow lanes of `closest` compare a t with 11 cleared mantissa bits).
+    Bound on the card: operations — 49 float32 ops per Plücker slot test
+    plus the two window compares, times the slot tests this run's data
+    needs: per lane, the slots of the clusters it enters, in order, up to
+    its first hit (`needed_tests`; the kernel runs four to six times as
+    many, `slot_tests`). Design: the closest-hit kernel's
+    staging, compaction and slot test, shared as device helpers; a
+    round's list holds the live lanes not yet occluded at its start that
+    enter one of its clusters (the frozen mask); each thread stops at its
+    cluster's first hit; the tile stops once every live lane is occluded
+    (a block-wide vote). Less shared memory than `closest` (no best t,
+    barycentrics or slot per lane), still one block per SM.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version. The plain versions repeat the kernels'
@@ -35,8 +54,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import sys
+import tempfile
 import threading
 import time
 
@@ -44,7 +66,7 @@ import torch
 
 from ..core.types import INF, f32
 
-CH = 8                 # clusters per closest-hit round
+CH = 8                 # clusters per traversal round
 NF = 24                # features per triangle slot (kernels/csrc/cluster.cu)
 SLOT_MASK = 2047       # low mantissa bits of t that carry the slot
 COV_CLUSTERS = 128     # clusters per coverage block: CPAD is a multiple
@@ -101,13 +123,24 @@ def load_library():
         lib.pbrt_coverage.restype = i
         lib.pbrt_coverage.argtypes = [p, p, p, p, p, i, i, i, i, p]
         lib.pbrt_closest.restype = i
-        lib.pbrt_closest.argtypes = [p] * 11 + [i] * 6 + [p]
+        lib.pbrt_closest.argtypes = [p] * 12 + [i] * 6 + [p]
+        lib.pbrt_occluded.restype = i
+        lib.pbrt_occluded.argtypes = [p] * 8 + [i] * 6 + [p]
+        lib.pbrt_compact_probe.restype = i
+        lib.pbrt_compact_probe.argtypes = [p, p, p, p, i, p]
+        lib.pbrt_overhead_probe.restype = i
+        lib.pbrt_overhead_probe.argtypes = [i] + [p] * 5 + [i] * 5 + [p]
         _lib = lib
         return lib
 
 
 def _ptr(x):
     return ctypes.c_void_p(x.data_ptr())
+
+
+def _opt_ptr(x):
+    """A tensor's pointer, or NULL for None."""
+    return ctypes.c_void_p(0) if x is None else _ptr(x)
 
 
 def _stream(x):
@@ -212,6 +245,57 @@ coverage.launches = 0
 
 # ---------------------------------------------------------- closest hit
 
+def _check_trace_args(packed, rays, corder, tnear, counts, covbits, tile, slot_tests,
+                      needed_tests):
+    """Device, dtype, shape and contiguity checks shared by the closest-hit
+    and any-hit wrappers. Returns (nt, W, nb32, k)."""
+    dev = rays.device
+    _check_tile(tile)
+    if rays.dim() != 2 or rays.shape[0] != 8 or rays.shape[1] % tile:
+        raise ValueError(f"rays: shape {tuple(rays.shape)}, expected (8, nt*{tile})")
+    nt = rays.shape[1] // tile
+    c, nf, k = packed.shape
+    W = corder.shape[1] if corder.dim() == 2 else -1
+    if nf != NF or CH * k > SLOT_MASK + 1 or W % CH:
+        raise ValueError(f"packed (C, {NF}, K) with {CH}·K <= {SLOT_MASK + 1} and "
+                         f"corder width a multiple of {CH} required")
+    nb32 = covbits.shape[1] if covbits.dim() == 3 else -1
+    _need(packed, "packed", torch.float32, (c, NF, k), dev)
+    _need(rays, "rays", torch.float32, (8, nt * tile), dev)
+    _need(corder, "corder", torch.int32, (nt, W), dev)
+    _need(tnear, "tnear", torch.float32, (nt, W), dev)
+    _need(counts, "counts", torch.int32, (nt,), dev)
+    _need(covbits, "covbits", torch.int32, (nt, nb32, tile), dev)
+    for a, name in ((slot_tests, "slot_tests"), (needed_tests, "needed_tests")):
+        if a is not None:
+            _need(a, name, torch.int64, (1,), dev)
+    return nt, W, nb32, k
+
+
+def _round_features(packed, cids):
+    """The round's slots (n, NF, CH·K), slot j·K + kk = cluster j's slot kk."""
+    return packed[cids].permute(0, 2, 1, 3).reshape(cids.shape[0], NF, -1)
+
+
+def _round_mask(covbits, idx, cids):
+    """(n, CH, tile) bool: lane enters round cluster j (its covbit)."""
+    words = covbits[idx[:, None], cids // 32]
+    return ((words >> (cids % 32).to(torch.int32)[..., None]) & 1) != 0
+
+
+def _listed(mask):
+    """The kernels' per-round lane list for the plain versions: each row's
+    lanes with mask set first, in lane order, cut to the longest row.
+    Returns (lanes (n, m) int64, listed (n, m) bool), or None when no lane
+    is listed. Every lane's test is its own, so testing only the listed
+    lanes changes no result."""
+    m = int(mask.sum(1).max()) if mask.numel() else 0
+    if m == 0:
+        return None
+    lanes = torch.argsort((~mask).to(torch.int32), dim=1, stable=True)[:, :m]
+    return lanes, torch.gather(mask, 1, lanes)
+
+
 def _slot_test(feat, ox, oy, oz, dx, dy, dz, mx, my, mz):
     """Plücker volumes, n·d and the plane numerator for every lane
     against every slot of the round; the kernel's arithmetic order."""
@@ -226,11 +310,39 @@ def _slot_test(feat, ox, oy, oz, dx, dy, dz, mx, my, mz):
     return pl(0), pl(6), pl(12), nd, tnum
 
 
+def _lane_planes(R):
+    """The kernels' per-lane ray planes from rays (8, nt, tile): origin,
+    direction and the Plücker moment m = o × d."""
+    ox, oy, oz, dx, dy, dz = (R[i] for i in range(6))
+    return (ox, oy, oz, dx, dy, dz, oy * dz - oz * dy, oz * dx - ox * dz,
+            ox * dy - oy * dx)
+
+
+def _round_tests(packed, cids, idx, lanes, planes, tmin):
+    """One round's slot tests for the listed lanes of tiles idx (lanes
+    (n, m)): the Plücker volumes, n·d, plane numerator and t of every
+    listed lane against every slot of the round's clusters, and ok = the
+    line passes inside and t > tmin. Each (n, m, CH·K)."""
+    lane = lambda a: torch.gather(a[idx], 1, lanes)[..., None]   # noqa: E731
+    w0, w1, w2, nd, tnum = _slot_test(_round_features(packed, cids),
+                                      *(lane(a) for a in planes))
+    hm = torch.minimum(torch.minimum(w0 * nd, w1 * nd), w2 * nd)
+    t = tnum * (1.0 / nd)
+    return w0, w1, w2, nd, tnum, t, (hm >= 0.0) & (t > lane(tmin))
+
+
+def _round_positions(counts, idx, r):
+    """(n, CH) bool: round r's position j lies within the tile's count
+    (positions past it repeat a cluster and are not needed)."""
+    pos = r * CH + torch.arange(CH, device=counts.device)
+    return pos < counts[idx].to(torch.int64)[:, None]
+
+
 def closest_plain(packed, rays, anyhit, corder, tnear, counts, covbits, tile,
-                  slot_tests=None, chunk=8):
+                  slot_tests=None, needed_tests=None, chunk=8):
     """Plain PyTorch closest hit, tiles in lock-step by round, `chunk`
-    tiles at a time (None: all live tiles at once). Same arguments and
-    results as `closest`."""
+    tiles at a time (None: all live tiles at once), each round testing its
+    listed lanes only. Same arguments and results as `closest`."""
     dev = rays.device
     nt = rays.shape[1] // tile
     c, _, k = packed.shape
@@ -248,10 +360,7 @@ def closest_plain(packed, rays, anyhit, corder, tnear, counts, covbits, tile,
     tb[dead, 0] = R[7][dead]
     done = dead.clone()
     slot_iota = torch.arange(chk, dtype=torch.int32, device=dev)
-    ox, oy, oz, dx, dy, dz = (R[i] for i in range(6))
-    mx = oy * dz - oz * dy
-    my = oz * dx - ox * dz
-    mz = ox * dy - oy * dx
+    planes = _lane_planes(R)
     for r in range(int(n_rounds.max()) if nt else 0):
         act = torch.nonzero(~done & (r < n_rounds))[:, 0]
         if act.numel() == 0:
@@ -262,24 +371,25 @@ def closest_plain(packed, rays, anyhit, corder, tnear, counts, covbits, tile,
             cids = corder[idx, r * CH:(r + 1) * CH].to(torch.int64)   # (n, CH)
             tns = tnear[idx, r * CH:(r + 1) * CH]
             tbest = t_best[idx]                                       # (n, tile)
-            words = covbits[idx[:, None], cids // 32]                 # (n, CH, tile)
-            bits = ((words >> (cids % 32).to(torch.int32)[..., None]) & 1) != 0
-            mask = (bits & (tbest[:, None, :] >= tns[..., None])).any(1)
+            # (n, CH, tile): the lane enters cluster j within its best t
+            joins = _round_mask(covbits, idx, cids) & (tbest[:, None, :] >= tns[..., None])
+            mask = joins.any(1)
             if slot_tests is not None:
                 slot_tests += mask.sum() * chk
-            feat = packed[cids].permute(0, 2, 1, 3).reshape(-1, NF, chk)
-            lane = lambda a: a[idx][..., None]   # noqa: E731  (n, tile, 1)
-            w0, w1, w2, nd, tnum = _slot_test(feat, lane(ox), lane(oy), lane(oz),
-                                              lane(dx), lane(dy), lane(dz),
-                                              lane(mx), lane(my), lane(mz))
-            hm = torch.minimum(torch.minimum(w0 * nd, w1 * nd), w2 * nd)
-            t = tnum * (1.0 / nd)
-            ok = (hm >= 0.0) & (t > lane(tmin))
+            if needed_tests is not None:
+                needed_tests += (joins & _round_positions(counts, idx, r)[..., None]).sum() * k
+            lst = _listed(mask)
+            if lst is None:
+                continue
+            lanes, listed = lst
+            w0, w1, w2, nd, tnum, t, ok = _round_tests(packed, cids, idx, lanes, planes,
+                                                       tmin)
             key = torch.where(ok, (t.view(torch.int32) & ~SLOT_MASK) | slot_iota,
                               _INT_MAX)
-            kmin = key.amin(-1)                                       # (n, tile)
+            kmin = key.amin(-1)                                       # (n, m)
             tj = (kmin & ~SLOT_MASK).view(torch.float32)
-            upd = mask & (tj < tbest)
+            tb_l = torch.gather(tbest, 1, lanes)
+            upd = listed & (tj < tb_l)
             # (lanes without a candidate carry INT_MAX: clamp their gather)
             s = torch.clamp((kmin & SLOT_MASK).to(torch.int64), max=chk - 1)[..., None]
             pick = lambda a: torch.gather(a, -1, s)[..., 0]   # noqa: E731
@@ -291,16 +401,21 @@ def closest_plain(packed, rays, anyhit, corder, tnear, counts, covbits, tile,
             jwin = s[..., 0] // k
             gslot = torch.gather(cids, 1, jwin) * k + s[..., 0] % k
             cand = torch.stack([s_t, s_w2 * inv, s_w0 * inv], 1)
-            tb[idx] = torch.where(upd[:, None], cand, tb[idx])
-            slot[idx] = torch.where(upd, gslot.to(torch.int32), slot[idx])
-            t_best[idx] = torch.where(upd, torch.where(ah[idx], -1.0, tj), tbest)
+            tb_i, slot_i = tb[idx], slot[idx]
+            l3 = lanes[:, None, :].expand(-1, 3, -1)
+            tb[idx] = tb_i.scatter(2, l3, torch.where(upd[:, None], cand,
+                                                      torch.gather(tb_i, 2, l3)))
+            slot[idx] = slot_i.scatter(1, lanes, torch.where(
+                upd, gslot.to(torch.int32), torch.gather(slot_i, 1, lanes)))
+            t_best[idx] = tbest.scatter(1, lanes, torch.where(
+                upd, torch.where(torch.gather(ah[idx], 1, lanes), -1.0, tj), tb_l))
         nxt = min((r + 1) * CH, W - 1)
         done[act] = tnear[act, nxt] >= t_best[act].amax(1)
     return tb[:, 0].contiguous(), slot, tb[:, 1:].contiguous()
 
 
 def closest(packed, rays, anyhit, corder, tnear, counts, covbits, tile,
-            slot_tests=None):
+            slot_tests=None, needed_tests=None):
     """Closest hit over each tile's covered clusters.
 
     packed (C, 24, K) f32; rays (8, nt·tile) f32; anyhit (nt·tile,) f32
@@ -310,42 +425,27 @@ def closest(packed, rays, anyhit, corder, tnear, counts, covbits, tile,
     covbits (nt, CPAD/32, tile) i32. Returns t (nt, tile) f32 exact plane
     t, slot (nt, tile) i32 GLOBAL slot cluster_id·K + lane or -1, bary
     (nt, 2, tile) f32 (b1, b2). `slot_tests` (1,) int64, when given,
-    accumulates the number of Plücker slot tests run."""
+    accumulates the number of Plücker slot tests run; `needed_tests` the
+    tests the function needs: K per (lane, cluster) pair whose covbit is
+    set and whose entry t is within the lane's best t at the start of the
+    round, positions past counts left out."""
     dev = rays.device
-    _check_tile(tile)
-    if rays.dim() != 2 or rays.shape[0] != 8 or rays.shape[1] % tile:
-        raise ValueError(f"rays: shape {tuple(rays.shape)}, expected (8, nt*{tile})")
-    nt = rays.shape[1] // tile
-    c, nf, k = packed.shape
-    W = corder.shape[1] if corder.dim() == 2 else -1
-    if nf != NF or CH * k > SLOT_MASK + 1 or W % CH:
-        raise ValueError(f"packed (C, {NF}, K) with {CH}·K <= {SLOT_MASK + 1} and "
-                         f"corder width a multiple of {CH} required")
-    nb32 = covbits.shape[1] if covbits.dim() == 3 else -1
-    _need(packed, "packed", torch.float32, (c, NF, k), dev)
-    _need(rays, "rays", torch.float32, (8, nt * tile), dev)
+    nt, W, nb32, k = _check_trace_args(packed, rays, corder, tnear, counts, covbits,
+                                       tile, slot_tests, needed_tests)
     if anyhit is not None:
         _need(anyhit, "anyhit", torch.float32, (nt * tile,), dev)
-    _need(corder, "corder", torch.int32, (nt, W), dev)
-    _need(tnear, "tnear", torch.float32, (nt, W), dev)
-    _need(counts, "counts", torch.int32, (nt,), dev)
-    _need(covbits, "covbits", torch.int32, (nt, nb32, tile), dev)
-    if slot_tests is not None:
-        _need(slot_tests, "slot_tests", torch.int64, (1,), dev)
     if dev.type != "cuda":
         return closest_plain(packed, rays, anyhit, corder, tnear, counts,
-                             covbits, tile, slot_tests)
+                             covbits, tile, slot_tests, needed_tests)
     lib = load_library()
     t_out = torch.empty((nt, tile), dtype=torch.float32, device=dev)
     slot = torch.empty((nt, tile), dtype=torch.int32, device=dev)
     bary = torch.empty((nt, 2, tile), dtype=torch.float32, device=dev)
-    null = ctypes.c_void_p(0)
-    err = lib.pbrt_closest(_ptr(packed), _ptr(rays),
-                           null if anyhit is None else _ptr(anyhit), _ptr(corder),
+    err = lib.pbrt_closest(_ptr(packed), _ptr(rays), _opt_ptr(anyhit), _ptr(corder),
                            _ptr(tnear), _ptr(counts), _ptr(covbits), _ptr(t_out),
-                           _ptr(slot), _ptr(bary),
-                           null if slot_tests is None else _ptr(slot_tests),
-                           nt, tile, W, nb32, k, CH, _stream(rays))
+                           _ptr(slot), _ptr(bary), _opt_ptr(slot_tests),
+                           _opt_ptr(needed_tests), nt, tile, W, nb32, k, CH,
+                           _stream(rays))
     if err:
         raise RuntimeError(f"closest-hit kernel launch failed: cudaError {err}")
     closest.launches += 1
@@ -353,3 +453,124 @@ def closest(packed, rays, anyhit, corder, tnear, counts, covbits, tile,
 
 
 closest.launches = 0
+
+
+# -------------------------------------------------------------- any hit
+
+def occluded_plain(packed, rays, corder, tnear, counts, covbits, tile,
+                   slot_tests=None, needed_tests=None, chunk=8):
+    """Plain PyTorch any hit, tiles in lock-step by round, `chunk` tiles
+    at a time (None: all at once), each round testing its listed lanes
+    only. Same arguments and results as `occluded`; the slot-test counts
+    follow the kernel's: each (lane, cluster) pair of a round counts its
+    slots up to its first hit, and the needed count keeps the pairs whose
+    covbit is set up to the lane's first such hit."""
+    dev = rays.device
+    nt = rays.shape[1] // tile
+    k = packed.shape[2]
+    R = rays.view(8, nt, tile)
+    tmin = torch.clamp(R[6], -_BIG, _BIG)
+    tmax = torch.clamp(R[7], -_BIG, _BIG)
+    live = tmax > tmin
+    occ = torch.zeros((nt, tile), dtype=torch.bool, device=dev)
+    n_rounds = (counts.to(torch.int64) + CH - 1) // CH
+    done = n_rounds == 0
+    planes = _lane_planes(R)
+    kk = torch.arange(k, dtype=torch.int64, device=dev)
+    for r in range(int(n_rounds.max()) if nt else 0):
+        done |= (occ | ~live).all(1)        # the kernel's vote, before each round
+        act = torch.nonzero(~done & (r < n_rounds))[:, 0]
+        if act.numel() == 0:
+            break
+        step = act.numel() if chunk is None else chunk
+        for a0 in range(0, act.numel(), step):
+            idx = act[a0:a0 + step]
+            cids = corder[idx, r * CH:(r + 1) * CH].to(torch.int64)   # (n, CH)
+            bits = _round_mask(covbits, idx, cids)                    # (n, CH, tile)
+            lst = _listed(bits.any(1) & live[idx] & ~occ[idx])
+            if lst is None:
+                continue
+            lanes, listed = lst
+            m = lanes.shape[1]
+            t, ok = _round_tests(packed, cids, idx, lanes, planes, tmin)[5:]
+            ok = (ok & (t < torch.gather(tmax[idx], 1, lanes)[..., None])).view(
+                len(idx), m, CH, k)                                  # (n, m, CH, K)
+            hit = ok.any(-1)                                         # (n, m, CH)
+            # slots each (lane, cluster) pair ran: up to its first hit, else K
+            ran = torch.where(hit, torch.where(ok, kk, k).amin(-1) + 1, k)
+            if slot_tests is not None:
+                slot_tests += (ran.sum(-1) * listed).sum()
+            if needed_tests is not None:
+                need = (torch.gather(bits, 2, lanes[:, None, :].expand(-1, CH, -1))
+                        .permute(0, 2, 1) & _round_positions(counts, idx, r)[:, None, :]
+                        & listed[..., None])
+                first = need & hit
+                earlier = (torch.cumsum(first.to(torch.int64), -1) - first.to(torch.int64)) > 0
+                needed_tests += torch.where(need & ~earlier, ran, 0).sum()
+            occ_i = occ[idx]
+            occ[idx] = occ_i.scatter(1, lanes, torch.gather(occ_i, 1, lanes)
+                                     | (listed & hit.any(-1)))
+    return occ
+
+
+def occluded(packed, rays, corder, tnear, counts, covbits, tile, slot_tests=None,
+             needed_tests=None):
+    """Any hit over each tile's covered clusters.
+
+    Same inputs as `closest` without `anyhit` (tnear carries the tile's
+    order contract; the any-hit kernel needs only corder). Returns occ
+    (nt, tile) bool: some triangle lies at tmin < t < tmax. `slot_tests`
+    (1,) int64, when given, accumulates the Plücker slot tests run;
+    `needed_tests` the tests the function needs: per lane, the slots of
+    the clusters its covbits name, in corder and slot order, up to its
+    first hit (positions past counts left out)."""
+    dev = rays.device
+    nt, W, nb32, k = _check_trace_args(packed, rays, corder, tnear, counts, covbits,
+                                       tile, slot_tests, needed_tests)
+    if dev.type != "cuda":
+        return occluded_plain(packed, rays, corder, tnear, counts, covbits, tile,
+                              slot_tests, needed_tests)
+    lib = load_library()
+    occ = torch.empty((nt, tile), dtype=torch.bool, device=dev)
+    err = lib.pbrt_occluded(_ptr(packed), _ptr(rays), _ptr(corder), _ptr(counts),
+                            _ptr(covbits), _ptr(occ), _opt_ptr(slot_tests),
+                            _opt_ptr(needed_tests), nt, tile, W, nb32, k, CH,
+                            _stream(rays))
+    if err:
+        raise RuntimeError(f"any-hit kernel launch failed: cudaError {err}")
+    occluded.launches += 1
+    return occ
+
+
+occluded.launches = 0
+
+
+def resource_usage(src=_SRC):
+    """Registers and spill-store bytes of each kernel of a source file, as
+    `nvcc -Xptxas -v` reports them with the build's flags. Returns
+    {kernel name: (registers, spill store bytes)}."""
+    with tempfile.TemporaryDirectory() as tmp:
+        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                              os.path.join(tmp, "lib.so"), src],
+                             capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
+    out, name, spill = {}, None, 0
+    for line in res.stderr.splitlines():
+        m = re.search(r"Compiling entry function '\S*?([a-z_]+_kernel)E", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), spill)
+            name = None
+    return out
+
+
+if __name__ == "__main__":
+    # python -m pbrt_tpu_torch.kernels.cluster_cuda [source.cu]
+    for kname, (regs, spill) in resource_usage(*sys.argv[1:2]).items():
+        print(f"{kname}: registers={regs} spill_store_bytes={spill}")

@@ -11,6 +11,7 @@ import torch
 
 from pbrt_tpu_torch.geom import cluster as tcl
 from pbrt_tpu_torch.kernels import cluster_cuda as tkern
+from pbrt_tpu_torch.kernels import probes
 
 TILE = 256
 
@@ -51,11 +52,12 @@ def test_kernels_equal_plain_versions(card, seed):
     assert torch.equal(tn, ptn) and torch.equal(cb, pcb)
     corder, tnear, counts, covbits = tcl.tile_cluster_order(cs, rays, TILE)
     args = (cs.packed, rays, flag_s, corder, tnear, counts, covbits, TILE)
-    kt, pt = (torch.zeros(1, dtype=torch.int64, device="cuda") for _ in range(2))
-    for a, b in zip(tkern.closest(*args, slot_tests=kt),
-                    tkern.closest_plain(*args, slot_tests=pt)):
+    kt, pt, kn, pn = (torch.zeros(1, dtype=torch.int64, device="cuda") for _ in range(4))
+    for a, b in zip(tkern.closest(*args, slot_tests=kt, needed_tests=kn),
+                    tkern.closest_plain(*args, slot_tests=pt, needed_tests=pn)):
         assert torch.equal(a, b)
     assert int(kt) == int(pt) > 0
+    assert int(kn) == int(pn) and 0 < int(kn) < int(kt)
     assert (tkern.coverage.launches, tkern.closest.launches) == \
         (launches[0] + 2, launches[1] + 1)
 
@@ -78,3 +80,39 @@ def test_gather_packed_exact_on_the_card(card):
         if a.dtype == torch.float32:
             got, want = got.view(torch.int32), want.view(torch.int32)
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [23, 24])
+def test_occluded_equals_plain_version(card, seed):
+    """Exact occ, equal slot-test counts (run and needed) on finite and
+    infinite windows, 20% dead lanes; the launch is counted once."""
+    verts, idx, o, d, t_min, t_max, _ = _soup_and_rays(seed)
+    cs = tcl.build_clusters(verts, idx, "cuda")
+    _, rays, _ = tcl.prepare(cs, o, d, t_min, t_max, TILE)
+    corder, tnear, counts, covbits = tcl.tile_cluster_order(cs, rays, TILE)
+    args = (cs.packed, rays, corder, tnear, counts, covbits, TILE)
+    kt, pt, kn, pn = (torch.zeros(1, dtype=torch.int64, device="cuda") for _ in range(4))
+    before = tkern.occluded.launches
+    occ = tkern.occluded(*args, slot_tests=kt, needed_tests=kn)
+    assert tkern.occluded.launches == before + 1
+    assert torch.equal(occ, tkern.occluded_plain(*args, slot_tests=pt, needed_tests=pn))
+    assert int(kt) == int(pt) > 0 and 0 < int(occ.sum()) < occ.numel()
+    assert int(kn) == int(pn) and 0 < int(kn) < int(kt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [256, 1024])
+def test_compaction_probe_equals_plain_version(card, tile):
+    mask, val = probes.compact_inputs(tile, "cuda")
+    assert int(mask.sum()) > 128
+    for a, b in zip(probes.compact(mask, val), probes.compact_plain(mask, val)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", probes.KINDS)
+def test_overhead_probe_equals_plain_version(card, kind):
+    args = probes.overhead_inputs(20, "cuda", nt=16)
+    assert torch.equal(probes.overhead(kind, *args, probes.TILE),
+                       probes.overhead_plain(kind, *args, probes.TILE))

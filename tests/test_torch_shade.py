@@ -36,7 +36,8 @@ def scene_tree(js):
         lights=a(js.lights, ("kind", "emit", "two_sided", "total_area", "em_tri_cdf",
                              "em_tri_p")),
         textures=None, world_center=np.asarray(js.world_center),
-        world_radius=float(js.world_radius))
+        world_radius=float(js.world_radius), quad_count=int(js.quad.kind.shape[0]),
+        instance_count=len(js.instances or ()))
     tree["lights"]["env_index"] = js.lights.env_index
     if js.textures is not None:
         tree["textures"] = a(js.textures, ("kind", "su", "sv", "atlas_slot", "atlas",

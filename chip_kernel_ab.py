@@ -1,0 +1,170 @@
+#!/usr/bin/env python3
+"""A/B timing of builds of the tracing kernels on the GPU, in one process.
+
+    python3 chip_kernel_ab.py LABEL=SOURCE ... [--reps N] [--res N]
+
+Each SOURCE is a cluster.cu (this repository's, or an unpacked earlier
+tree's) built with the port's nvcc flags, all builds started together.
+Every build's `pbrt_closest` and `pbrt_occluded` (the same C interface in
+each) then run on the bench wavefronts of chip_smoke.py at RES×RES (512
+by default): the primary rays and the fused bounce (closest hit), the
+direct-lighting shadow and the first AO wavefront (any hit). For each
+build and wavefront the script prints the slot tests run and needed (the
+kernels' counters), the lanes whose results differ from the first
+build's, the kernels' registers and spill bytes (nvcc -Xptxas -v), and
+the ms per launch by CUDA events: REPS launches after a warm-up, the
+builds timed in turns, forward then backward (A B C C B A), so a drift of
+the card's clock spreads over all of them. The last line is one JSON
+object with every number. Needs a GPU; prints the card's name and power
+limit.
+"""
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def build(label, src, out_dir, flags, nvcc):
+    so = os.path.join(out_dir, f"lib_{label}.so")
+    cmd = [nvcc, *flags, "-Xptxas", "-v", "-o", so, src]
+    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def load(so):
+    lib = ctypes.CDLL(so)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pbrt_closest.restype = i
+    lib.pbrt_closest.argtypes = [p] * 12 + [i] * 6 + [p]
+    lib.pbrt_occluded.restype = i
+    lib.pbrt_occluded.argtypes = [p] * 8 + [i] * 6 + [p]
+    return lib
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_kernel_ab.py needs a GPU")
+    import chip_smoke as cs_
+    from pbrt_tpu_torch.core import samplers as smp
+    from pbrt_tpu_torch.geom import cluster as clmod
+    from pbrt_tpu_torch.geom import scene as scenemod
+    from pbrt_tpu_torch.integrate import ao, direct, driver
+    from pbrt_tpu_torch.kernels import cluster_cuda as kern
+    from pbrt_tpu_torch.scenes import bench_camera, bench_scene
+
+    args, reps, res = [], 20, 512
+    it = iter(sys.argv[1:])
+    for a in it:
+        if a == "--reps":
+            reps = int(next(it))
+        elif a == "--res":
+            res = int(next(it))
+        else:
+            args.append(a.split("=", 1))
+    if not args:
+        sys.exit(__doc__)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    print("card:", smi, flush=True)
+    out_dir = os.path.join(os.path.dirname(kern.library_path()), "ab")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    jobs = [(label, *build(label, spec, out_dir, kern.NVCC_FLAGS, kern._nvcc()))
+            for label, spec in args]
+    libs, usage = {}, {}
+    for label, so, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode:
+            sys.exit(f"nvcc failed for {label}:\n{err}")
+        libs[label] = load(so)
+        usage[label] = {k: v for k, v in kern.ptxas_usage(err).items()
+                        if k in ("closest_kernel", "occluded_kernel")}
+        print(f"{label}: registers, spill store bytes {usage[label]}", flush=True)
+    print(f"built {len(libs)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    dev = torch.device("cuda")
+    scene = bench_scene(6, dev)
+    cs = scene.clusters
+    tile = scene.tile
+    cam = bench_camera((res, res), dev)
+    cfg = driver.RenderConfig(width=res, height=res, spp=1, max_depth=5,
+                              sampler=smp.SamplerConfig(kind="zerotwo", spp=1))
+    pid, sid = driver.lane_ids(cfg, 0, 1, dev)
+    o, d, _, _ = driver.camera_rays(cam, cfg, pid.reshape(-1), sid.reshape(-1))
+    n = o.shape[0]
+    t_min = torch.full((n,), 1e-4, device=dev)
+    t_max = torch.full((n,), float("inf"), device=dev)
+    _, rays_p, _ = clmod.prepare(cs, o, d, t_min, t_max, tile)
+    hit = scenemod.intersect(scene, o, d)
+    ob, db, tminb, tmaxb, flag = cs_.bounce_wavefront(scene, o, d, hit)
+    _, rays_b, flag_s = clmod.prepare(cs, ob, db, tminb, tmaxb, tile, flag)
+    sent_d = cs_.sent_wavefronts(clmod, lambda: driver.render_lanes(
+        scene, cam, cfg, direct.make_li(cfg, "one"), pid, sid))
+    sent_a = cs_.sent_wavefronts(clmod, lambda: driver.render_lanes(
+        scene, cam, cfg, ao.make_li(cfg, True, 4), pid, sid))
+    shapes = [("primary", "closest", rays_p, None), ("fused_bounce", "closest", rays_b, flag_s)]
+    for tag, w in (("direct_shadow", sent_d[0]), ("ao", sent_a[0])):
+        shapes.append((tag, "occluded", clmod.prepare(cs, *w, tile)[1], None))
+
+    P = lambda x: ctypes.c_void_p(0 if x is None else x.data_ptr())   # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    results = {}
+    for tag, kind, rays, fl in shapes:
+        nt = rays.shape[1] // tile
+        corder, tnear, counts, covbits = clmod.tile_cluster_order(cs, rays, tile)
+        W, nb32, k = corder.shape[1], covbits.shape[1], cs.packed.shape[2]
+        if kind == "closest":
+            outs = lambda: (torch.empty((nt, tile), device=dev),   # noqa: E731
+                            torch.empty((nt, tile), dtype=torch.int32, device=dev),
+                            torch.empty((nt, 2, tile), device=dev))
+
+            def call(lib, out, st=None, nd=None):
+                return lib.pbrt_closest(P(cs.packed), P(rays), P(fl), P(corder), P(tnear),
+                                        P(counts), P(covbits), *(P(x) for x in out), P(st),
+                                        P(nd), nt, tile, W, nb32, k, kern.CH, stream)
+        else:
+            outs = lambda: (torch.empty((nt, tile), dtype=torch.bool, device=dev),)  # noqa: E731
+
+            def call(lib, out, st=None, nd=None):
+                return lib.pbrt_occluded(P(cs.packed), P(rays), P(corder), P(counts),
+                                         P(covbits), P(out[0]), P(st), P(nd), nt, tile, W,
+                                         nb32, k, kern.CH, stream)
+        ref, row = None, {}
+        for label, lib in libs.items():
+            out = outs()
+            st, nd = (torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(2))
+            if call(lib, out, st, nd):
+                sys.exit(f"{label} {kind} launch failed")
+            torch.cuda.synchronize()
+            ref = ref or out
+            differ = int((out[-1 if kind == "occluded" else 1] !=
+                          ref[-1 if kind == "occluded" else 1]).sum())
+            row[label] = dict(slot_tests=int(st), needed_tests=int(nd), lanes_differ=differ,
+                              ms=[])
+        order = list(libs) + list(libs)[::-1]
+        out = outs()
+        for label in order:
+            lib = libs[label]
+            call(lib, out)
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                call(lib, out)
+            b.record()
+            torch.cuda.synchronize()
+            row[label]["ms"].append(a.elapsed_time(b) / reps)
+        for label, r in row.items():
+            print(f"{tag:14s} {kind:8s} {label:12s} ms={r['ms']} slot_tests={r['slot_tests']} "
+                  f"needed_tests={r['needed_tests']} lanes_differ={r['lanes_differ']}",
+                  flush=True)
+        results[tag] = row
+    print(json.dumps({"card": smi, "reps": reps, "res": res, "builds": dict(args),
+                      "usage": usage, "results": results}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -10,11 +10,15 @@ Phases, each printing one line with its elapsed seconds:
   4. each kernel against its plain PyTorch version on the card, on the
      bench scene's primary rays and on one fused bounce wavefront (about
      20% dead lanes, half shadow lanes), the plain version on at most 32
-     tiles; kernel times by CUDA events;
+     tiles: bit for bit in t, slot and barycentrics, with equal slot-test
+     counts; the closest-hit kernel runs exactly the slot tests the data
+     needs, at most half of what the earlier kernel ran
+     (PRIOR_SLOT_TESTS); kernel
+     times by CUDA events;
   4b. the any-hit kernel against its plain version (exact occ, equal
-     slot-test counts) on the shadow wavefront that direct.li sends and
-     on the first occlusion wavefront that ao.li sends, both recorded
-     from a 512×512 frame;
+     slot-test counts, at most half of the earlier run count) on the shadow
+     wavefront that direct.li sends and on the first occlusion wavefront
+     that ao.li sends, both recorded from a 512×512 frame;
   5. a 64×64 depth-5 path render through the kernels (card) and through
      the plain versions (CPU), held to the pixel check of
      tests/test_oracle.py;
@@ -26,19 +30,27 @@ Phases, each printing one line with its elapsed seconds:
      timed frames each, with the launch counts per frame;
   7. the probe kernels (kernels/probes.py): the compaction probe at tiles
      256 and 1,024 and the overhead probe, each against its plain version.
-Then one JSON line with each kernel's numbers, the nvidia-smi line, and
+Then one JSON line with each kernel's numbers (with the earlier tracers'
+times and slot-test counts beside theirs, and every kernel's
+registers and spill bytes from nvcc -Xptxas -v), the nvidia-smi line, and
 the last line {"ok": true, "device": {...}}. Any failed check exits
 non-zero before that line.
 """
 import json
 import subprocess
 import sys
+import threading
 import time
 
 T0 = time.perf_counter()
 H100_F32_FLOPS = 67e12        # non-tensor-core float32 peak, H100 SXM at 700 W
 H100_HBM_BYTES = 3.35e12      # HBM3 bytes/s, H100 SXM
 PLAIN_TILES = 32              # tiles the plain versions are run on
+# The slot tests that the earlier tracers (one block per tile, every slot
+# of a round for every joining lane) ran on the same wavefronts: counts
+# that depend on the data alone, the gate of phases 4 and 4b
+PRIOR_SLOT_TESTS = {"fused_bounce": 544214016, "primary": 258545664,
+                    "direct_shadow": 536334441, "ao": 246831052}
 
 
 def log(phase, **kv):
@@ -138,7 +150,9 @@ def check_closest(kern, clmod, cs, rays, flag, tile, tag):
     t_bad = int((~torch.isclose(tk[hit], tp[hit], rtol=1e-6, atol=0)).sum())
     b_bad = int((~torch.isclose(bk.permute(0, 2, 1)[hit], bp.permute(0, 2, 1)[hit],
                                 rtol=1e-6, atol=0)).sum())
-    exact = bool(same.all() and torch.equal(tk[hit], tp[hit]))
+    bits = lambda a: a.contiguous().view(torch.int32)   # noqa: E731
+    exact = bool(torch.equal(sk, sp) and torch.equal(bits(tk), bits(tp))
+                 and torch.equal(bits(bk), bits(bp)))
     err = max(float((tk[hit] - tp[hit]).abs().max()) if bool(hit.any()) else 0.0,
               float((bk.permute(0, 2, 1)[hit] - bp.permute(0, 2, 1)[hit]).abs().max())
               if bool(hit.any()) else 0.0)
@@ -148,8 +162,12 @@ def check_closest(kern, clmod, cs, rays, flag, tile, tag):
         slot_tests_subset_kernel=int(ktests), slot_tests_subset_plain=int(ptests),
         needed_tests_subset_kernel=int(kneeded), needed_tests_subset_plain=int(pneeded),
         slot_tests=int(tests), needed_tests=int(needed))
-    if frac < 0.9999 or t_bad or b_bad:
+    if (not exact or t_bad or b_bad or int(ktests) != int(ptests)
+            or int(kneeded) != int(pneeded)):
         fail(f"closest[{tag}]: kernel and plain version disagree")
+    if int(tests) != int(needed) or int(tests) > PRIOR_SLOT_TESTS[tag] // 2:
+        fail(f"closest[{tag}]: runs {int(tests)} slot tests, needs {int(needed)}; "
+             f"the earlier kernel ran {PRIOR_SLOT_TESTS[tag]}")
     ms = cuda_ms(lambda: kern.closest(cs.packed, rays, flag, corder, tnear, counts,
                                       covbits, tile), 10)
     kms = cuda_ms(lambda: kern.closest(*args), 10)
@@ -199,6 +217,9 @@ def check_occluded(kern, clmod, cs, o, d, t_min, t_max, tile, tag):
     if (mism or not torch.equal(occ_k, occ_p) or int(ktests) != int(ptests)
             or int(kneeded) != int(pneeded)):
         fail(f"occluded[{tag}]: kernel and plain version disagree")
+    if int(tests) > PRIOR_SLOT_TESTS[tag] // 2:
+        fail(f"occluded[{tag}]: runs {int(tests)} slot tests; the earlier kernel ran "
+             f"{PRIOR_SLOT_TESTS[tag]}")
     full = (cs.packed, rays, corder, tnear, counts, covbits, tile)
     ms = cuda_ms(lambda: kern.occluded(*full), 10)
     kms = cuda_ms(lambda: kern.occluded(*args), 10)
@@ -338,7 +359,10 @@ def main():
     log("card", nvidia_smi=f"'{smi_line}'", torch_device=f"'{name}'",
         torch=torch.__version__, cuda=torch.version.cuda)
 
-    # 2. kernel build
+    # 2. kernel build; registers and spills from a second nvcc beside it
+    usage = {}
+    ptxas = threading.Thread(target=lambda: usage.update(kern.resource_usage()))
+    ptxas.start()
     t0 = time.perf_counter()
     kern.load_library()
     log("build", seconds=f"{time.perf_counter() - t0:.2f}",
@@ -476,19 +500,31 @@ def main():
                     subset_kernel_ms=c["subset_kernel_ms"], plain_tiles=c["plain_tiles"],
                     **extra)
 
+    ptxas.join()
+    if "closest_kernel" not in usage or "occluded_kernel" not in usage:
+        fail(f"nvcc -Xptxas -v gave no register counts: {usage}")
+
+    def resources(kname):
+        regs, spill = usage[kname]
+        return dict(registers=regs, spill_store_bytes=spill)
+
     rows = [row("coverage", "pbrt_tpu/kernels/cluster_pallas.py:303", cov_p, cov_b,
-                shape="fused_bounce", primary_ms=cov_p["ms"]),
+                shape="fused_bounce", primary_ms=cov_p["ms"], **resources("coverage_kernel")),
             row("closest", "pbrt_tpu/kernels/cluster_pallas.py:876", cl_p, cl_b,
-                shape="fused_bounce", primary_ms=cl_p["ms"], slot_tests=cl_b["slot_tests"],
-                needed_tests=cl_b["needed_tests"], slot_tests_primary=cl_p["slot_tests"],
-                needed_tests_primary=cl_p["needed_tests"]),
+                shape="fused_bounce", primary_ms=cl_p["ms"],
+                primary_bound_ms=bound(cl_p["ops"], cl_p["bytes"])[0],
+                slot_tests=cl_b["slot_tests"], needed_tests=cl_b["needed_tests"],
+                slot_tests_primary=cl_p["slot_tests"],
+                needed_tests_primary=cl_p["needed_tests"],
+                **resources("closest_kernel")),
             row("occluded", "pbrt_tpu/kernels/cluster_pallas.py:924", oc_d, oc_a,
                 shape="ao", direct_shadow_ms=oc_d["ms"],
                 direct_shadow_plain_ms=oc_d["plain_ms"],
                 direct_shadow_bound_ms=bound(oc_d["ops"], oc_d["bytes"])[0],
                 slot_tests=oc_a["slot_tests"], needed_tests=oc_a["needed_tests"],
                 slot_tests_direct_shadow=oc_d["slot_tests"],
-                needed_tests_direct_shadow=oc_d["needed_tests"])]
+                needed_tests_direct_shadow=oc_d["needed_tests"],
+                **resources("occluded_kernel"))]
     kind, count = "stage+compute", probes.COUNTS[-1]
     o_bound, o_by = bound(probes.overhead_ops(kind, count), probes.overhead_bytes(kind, count))
     rows.append(dict(name="overhead_probe", route="cuda",
@@ -501,14 +537,16 @@ def main():
                      plain_tiles=pr["plain_tiles"],
                      subset_kernel_ms=pr["overhead_subset_kernel_ms"],
                      us_per_tile={f"{k} {c}": v * 1e3 / probes.NT
-                                  for (k, c), v in pr["overhead"].items()}))
+                                  for (k, c), v in pr["overhead"].items()},
+                     **resources("overhead_probe_kernel")))
     c_bound, c_by = bound(0, 4 * 1024 * 4)     # mask, val in; out, slot out
     rows.append(dict(name="compact_probe", route="cuda",
                      source="pbrt_tpu_torch/kernels/csrc/cluster.cu",
                      replaces="debug_lc_prim2.py:89", launches=probe_launches["compact"],
                      max_abs_err=pr["compact_max_abs_err"], ms=pr["compact_ms"],
                      plain_ms=pr["compact_plain_ms"],
-                     bound_ms=c_bound, bound_by=c_by, library_ms=None, shape="tile=1024"))
+                     bound_ms=c_bound, bound_by=c_by, library_ms=None, shape="tile=1024",
+                     **resources("compact_probe_kernel")))
     print(json.dumps({"kernels": rows}), flush=True)
     log("done", total_seconds=f"{time.perf_counter() - T0:.1f}")
     print(smi_line, flush=True)

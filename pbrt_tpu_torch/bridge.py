@@ -39,14 +39,19 @@ def _clusters(c, device):
 def scene_from_numpy(tree, device=None, tile=clmod.TILE):
     """tree: dict with "tri", "clusters" (or None), "materials",
     "lights", "textures" (or None) sub-dicts of numpy arrays, plus
-    "world_center" and "world_radius", and optionally "quad_count" and
-    "instance_count" (quadrics and instances are not ported: a scene with
-    either is refused)."""
+    "world_center", "world_radius", "quad_count" and "instance_count".
+    Quadrics and instances are not ported: a scene with either is
+    refused, and so is a tree that does not state both counts (its
+    quadrics or instances would otherwise go missing without a word)."""
     device = resolve_device(device)
     t = tree["tri"]
     if int(tree["lights"].get("env_index", -1)) >= 0:
         raise NotImplementedError("infinite lights are not ported yet")
-    if int(tree.get("quad_count", 0)) or int(tree.get("instance_count", 0)):
+    missing = [k for k in ("quad_count", "instance_count") if k not in tree]
+    if missing:
+        raise NotImplementedError(f"the scene tree does not state {missing}: quadrics and "
+                                  "instances are not ported, so a scene must show it has none")
+    if int(tree["quad_count"]) or int(tree["instance_count"]):
         raise NotImplementedError("quadrics and instances are not ported yet")
     return Scene(
         tri=triangles_from_numpy(t["positions"], t["indices"], t["normals"], t["uvs"],

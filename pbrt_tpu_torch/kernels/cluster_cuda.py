@@ -16,16 +16,27 @@ closest — replaces `traverse_tiles` (cluster_pallas.py:876, default kernel
     covered clusters in ascending entry t, with fused shadow lanes
     (anyhit > 0). Bound on the card: operations — 49 float32 ops per
     Plücker slot test, times the slot tests this run's data needs: K per
-    (lane, cluster) pair whose covbit is set and whose entry t is within
-    the lane's best t (`needed_tests`; the kernel runs about five times
-    as many, `slot_tests`, since a joining lane tests all CH·K slots of
-    the round). Design: one
-    block per tile; each round's CH clusters staged in shared memory,
-    slot-major and bank-padded; the lanes joining the round (covbit of a
-    round cluster, entry t <= best t, decided at round start — the LC
-    kernel's frozen mask) compacted into a list; a group of CH threads per
-    listed lane, one thread per cluster, reducing the (t|slot) key by warp
-    shuffles; early stop on the tile's max best t.
+    (lane, cluster) pair whose covbit is set, whose position lies within
+    the tile's count and whose entry t is within the lane's best t at the
+    start of the round (`needed_tests`). In practice the sparse rounds
+    make each block wait on feature loads from L2 and on its barriers, and
+    the blocks of the tiles with the longest cluster lists set the
+    launch's time. Design: the TPU kernel tests all CH·K slots of a round
+    for every lane that enters one of its clusters; here a round lists
+    exactly the pairs above and runs K tests per pair (`slot_tests`
+    equals `needed_tests`). A block of BLOCK lanes walks its tile's rounds
+    on its own (the early stop compares the next entry t with the max
+    best t of the block's lanes), six blocks share an SM, and block b
+    takes the tile of rank b·BLOCK/tile by descending count (one small
+    block sorts the tiles by count before each launch), so the longest
+    chains of rounds start first. A warp takes a unit: 32 slots of
+    one round cluster against a work item of at least 32 of the lanes
+    listed for it; it holds the slots' features in registers, loaded
+    straight from `packed` (C, 24, K), reads each lane's ray as a
+    shared-memory broadcast and puts a hit's (t|slot) key into the lane's
+    int by atomicMin in shared memory, so the result does not depend on
+    the order of the hits. The features never pass through shared memory,
+    whose read pipe (96 bytes a test) bounded the earlier design.
 
 occluded — replaces `occluded_tiles` (cluster_pallas.py:924, default
     kernel `_make_anyhit_kernel_lc`). Any hit per lane: does a triangle of
@@ -34,14 +45,15 @@ occluded — replaces `occluded_tiles` (cluster_pallas.py:924, default
     Bound on the card: operations — 49 float32 ops per Plücker slot test
     plus the two window compares, times the slot tests this run's data
     needs: per lane, the slots of the clusters it enters, in order, up to
-    its first hit (`needed_tests`; the kernel runs four to six times as
-    many, `slot_tests`). Design: the closest-hit kernel's
-    staging, compaction and slot test, shared as device helpers; a
-    round's list holds the live lanes not yet occluded at its start that
-    enter one of its clusters (the frozen mask); each thread stops at its
-    cluster's first hit; the tile stops once every live lane is occluded
-    (a block-wide vote). Less shared memory than `closest` (no best t,
-    barycentrics or slot per lane), still one block per SM.
+    its first hit (`needed_tests`); the same waits as `closest` in
+    practice. Design: `closest`'s blocks, order, pair lists and
+    register-held units; a pair is a covbit set within the count of a
+    lane live and not yet occluded at the start of the round, and runs K
+    tests (`slot_tests`), so only the slots after a lane's first hit are
+    run and not needed. A hit writes its round position into the lane's
+    int by atomicMin, which gives the first hit for the needed count; a
+    block stops once every live lane of its own is occluded (a
+    block-wide vote).
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version. The plain versions repeat the kernels'
@@ -67,6 +79,7 @@ import torch
 from ..core.types import INF, f32
 
 CH = 8                 # clusters per traversal round
+BLOCK = 128            # lanes per closest-hit and any-hit block (kernels/csrc/cluster.cu)
 NF = 24                # features per triangle slot (kernels/csrc/cluster.cu)
 SLOT_MASK = 2047       # low mantissa bits of t that carry the slot
 COV_CLUSTERS = 128     # clusters per coverage block: CPAD is a multiple
@@ -272,6 +285,15 @@ def _check_trace_args(packed, rays, corder, tnear, counts, covbits, tile, slot_t
     return nt, W, nb32, k
 
 
+def _check_kernel_shape(k, tile):
+    """What the tracing kernels take beyond the plain versions: K a power
+    of two of 32-slot units, whole blocks of BLOCK lanes."""
+    units = k // 32
+    if k % 32 or units & (units - 1) or tile % BLOCK:
+        raise ValueError(f"the CUDA tracers need K = 32·2^n (K={k}) and tile a multiple "
+                         f"of {BLOCK} (tile={tile})")
+
+
 def _round_features(packed, cids):
     """The round's slots (n, NF, CH·K), slot j·K + kk = cluster j's slot kk."""
     return packed[cids].permute(0, 2, 1, 3).reshape(cids.shape[0], NF, -1)
@@ -339,12 +361,28 @@ def _round_positions(counts, idx, r):
 
 
 def closest_plain(packed, rays, anyhit, corder, tnear, counts, covbits, tile,
-                  slot_tests=None, needed_tests=None, chunk=8):
-    """Plain PyTorch closest hit, tiles in lock-step by round, `chunk`
-    tiles at a time (None: all live tiles at once), each round testing its
-    listed lanes only. Same arguments and results as `closest`."""
-    dev = rays.device
+                  slot_tests=None, needed_tests=None, chunk=8, block=BLOCK, prune=True):
+    """Plain PyTorch closest hit. Same arguments and results as `closest`.
+    Each tile is cut into blocks of `block` lanes that walk the tile's
+    rounds on their own, as the kernel's blocks do; `prune=False` walks
+    every round (the early stop only saves work: a lane whose best t lies
+    below the next entry t joins no later pair). The blocks run in
+    lock-step by round, those of `chunk` tiles at a time (None: all at
+    once), each round testing the (lane, cluster) pairs listed for it
+    only."""
     nt = rays.shape[1] // tile
+    q = tile // block
+    if q > 1:   # the same memory as nt·q tiles of `block` lanes
+        nb32 = covbits.shape[1]
+        rep = lambda a: a.repeat_interleave(q, 0)   # noqa: E731
+        t, slot, bary = closest_plain(
+            packed, rays, anyhit, rep(corder), rep(tnear), rep(counts),
+            covbits.view(nt, nb32, q, block).permute(0, 2, 1, 3).reshape(nt * q, nb32, block),
+            block, slot_tests, needed_tests, None if chunk is None else chunk * q, block,
+            prune)
+        return (t.view(nt, tile), slot.view(nt, tile),
+                bary.view(nt, q, 2, block).permute(0, 2, 1, 3).reshape(nt, 2, tile))
+    dev = rays.device
     c, _, k = packed.shape
     W = corder.shape[1]
     chk = CH * k
@@ -371,19 +409,23 @@ def closest_plain(packed, rays, anyhit, corder, tnear, counts, covbits, tile,
             cids = corder[idx, r * CH:(r + 1) * CH].to(torch.int64)   # (n, CH)
             tns = tnear[idx, r * CH:(r + 1) * CH]
             tbest = t_best[idx]                                       # (n, tile)
-            # (n, CH, tile): the lane enters cluster j within its best t
-            joins = _round_mask(covbits, idx, cids) & (tbest[:, None, :] >= tns[..., None])
-            mask = joins.any(1)
+            # (n, CH, tile) the pairs: the lane enters cluster j (its
+            # covbit), whose entry t is within its best t
+            pairs = (_round_mask(covbits, idx, cids) & (tbest[:, None, :] >= tns[..., None])
+                     & _round_positions(counts, idx, r)[..., None])
+            n_pairs = pairs.sum()
             if slot_tests is not None:
-                slot_tests += mask.sum() * chk
+                slot_tests += n_pairs * k
             if needed_tests is not None:
-                needed_tests += (joins & _round_positions(counts, idx, r)[..., None]).sum() * k
-            lst = _listed(mask)
+                needed_tests += n_pairs * k
+            lst = _listed(pairs.any(1))
             if lst is None:
                 continue
             lanes, listed = lst
             w0, w1, w2, nd, tnum, t, ok = _round_tests(packed, cids, idx, lanes, planes,
                                                        tmin)
+            paired = torch.gather(pairs, 2, lanes[:, None, :].expand(-1, CH, -1))
+            ok &= paired.permute(0, 2, 1).repeat_interleave(k, 2)     # (n, m, CH·K)
             key = torch.where(ok, (t.view(torch.int32) & ~SLOT_MASK) | slot_iota,
                               _INT_MAX)
             kmin = key.amin(-1)                                       # (n, m)
@@ -409,8 +451,9 @@ def closest_plain(packed, rays, anyhit, corder, tnear, counts, covbits, tile,
                 upd, gslot.to(torch.int32), torch.gather(slot_i, 1, lanes)))
             t_best[idx] = tbest.scatter(1, lanes, torch.where(
                 upd, torch.where(torch.gather(ah[idx], 1, lanes), -1.0, tj), tb_l))
-        nxt = min((r + 1) * CH, W - 1)
-        done[act] = tnear[act, nxt] >= t_best[act].amax(1)
+        if prune:
+            nxt = min((r + 1) * CH, W - 1)
+            done[act] = tnear[act, nxt] >= t_best[act].amax(1)
     return tb[:, 0].contiguous(), slot, tb[:, 1:].contiguous()
 
 
@@ -437,6 +480,7 @@ def closest(packed, rays, anyhit, corder, tnear, counts, covbits, tile,
     if dev.type != "cuda":
         return closest_plain(packed, rays, anyhit, corder, tnear, counts,
                              covbits, tile, slot_tests, needed_tests)
+    _check_kernel_shape(k, tile)
     lib = load_library()
     t_out = torch.empty((nt, tile), dtype=torch.float32, device=dev)
     slot = torch.empty((nt, tile), dtype=torch.int32, device=dev)
@@ -460,11 +504,15 @@ closest.launches = 0
 def occluded_plain(packed, rays, corder, tnear, counts, covbits, tile,
                    slot_tests=None, needed_tests=None, chunk=8):
     """Plain PyTorch any hit, tiles in lock-step by round, `chunk` tiles
-    at a time (None: all at once), each round testing its listed lanes
-    only. Same arguments and results as `occluded`; the slot-test counts
-    follow the kernel's: each (lane, cluster) pair of a round counts its
-    slots up to its first hit, and the needed count keeps the pairs whose
-    covbit is set up to the lane's first such hit."""
+    at a time (None: all at once), each round testing the (lane, cluster)
+    pairs listed for it only: the lane enters the cluster (its covbit),
+    the position lies within the tile's count, and the lane is live and
+    not yet occluded at the start of the round. Same arguments and
+    results as `occluded`. Cutting a tile into the kernel's blocks changes
+    nothing here: an occluded or dead lane joins no pair, so the blocks'
+    early stop only saves work. The slot-test counts follow the kernel's:
+    K per pair run, and the needed count keeps each lane's pairs up to its
+    first hit in (cluster position, slot) order."""
     dev = rays.device
     nt = rays.shape[1] // tile
     k = packed.shape[2]
@@ -486,27 +534,29 @@ def occluded_plain(packed, rays, corder, tnear, counts, covbits, tile,
         for a0 in range(0, act.numel(), step):
             idx = act[a0:a0 + step]
             cids = corder[idx, r * CH:(r + 1) * CH].to(torch.int64)   # (n, CH)
-            bits = _round_mask(covbits, idx, cids)                    # (n, CH, tile)
-            lst = _listed(bits.any(1) & live[idx] & ~occ[idx])
+            pairs = (_round_mask(covbits, idx, cids)                  # (n, CH, tile)
+                     & _round_positions(counts, idx, r)[..., None]
+                     & (live[idx] & ~occ[idx])[:, None, :])
+            lst = _listed(pairs.any(1))
             if lst is None:
                 continue
             lanes, listed = lst
             m = lanes.shape[1]
+            paired = torch.gather(pairs, 2, lanes[:, None, :].expand(-1, CH, -1)) \
+                .permute(0, 2, 1)                                    # (n, m, CH)
             t, ok = _round_tests(packed, cids, idx, lanes, planes, tmin)[5:]
             ok = (ok & (t < torch.gather(tmax[idx], 1, lanes)[..., None])).view(
-                len(idx), m, CH, k)                                  # (n, m, CH, K)
+                len(idx), m, CH, k) & paired[..., None]              # (n, m, CH, K)
             hit = ok.any(-1)                                         # (n, m, CH)
-            # slots each (lane, cluster) pair ran: up to its first hit, else K
-            ran = torch.where(hit, torch.where(ok, kk, k).amin(-1) + 1, k)
             if slot_tests is not None:
-                slot_tests += (ran.sum(-1) * listed).sum()
+                slot_tests += paired.sum() * k
             if needed_tests is not None:
-                need = (torch.gather(bits, 2, lanes[:, None, :].expand(-1, CH, -1))
-                        .permute(0, 2, 1) & _round_positions(counts, idx, r)[:, None, :]
-                        & listed[..., None])
-                first = need & hit
-                earlier = (torch.cumsum(first.to(torch.int64), -1) - first.to(torch.int64)) > 0
-                needed_tests += torch.where(need & ~earlier, ran, 0).sum()
+                # each pair's slots up to its first hit, else K; pairs after
+                # the lane's first hitting pair left out
+                ran = torch.where(hit, torch.where(ok, kk, k).amin(-1) + 1, k)
+                h = hit.to(torch.int64)
+                earlier = (torch.cumsum(h, -1) - h) > 0
+                needed_tests += torch.where(paired & ~earlier, ran, 0).sum()
             occ_i = occ[idx]
             occ[idx] = occ_i.scatter(1, lanes, torch.gather(occ_i, 1, lanes)
                                      | (listed & hit.any(-1)))
@@ -530,6 +580,7 @@ def occluded(packed, rays, corder, tnear, counts, covbits, tile, slot_tests=None
     if dev.type != "cuda":
         return occluded_plain(packed, rays, corder, tnear, counts, covbits, tile,
                               slot_tests, needed_tests)
+    _check_kernel_shape(k, tile)
     lib = load_library()
     occ = torch.empty((nt, tile), dtype=torch.bool, device=dev)
     err = lib.pbrt_occluded(_ptr(packed), _ptr(rays), _ptr(corder), _ptr(counts),
@@ -555,9 +606,15 @@ def resource_usage(src=_SRC):
                              capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
+    return ptxas_usage(res.stderr)
+
+
+def ptxas_usage(log):
+    """{kernel name: (registers, spill store bytes)} from the output of
+    `nvcc -Xptxas -v`."""
     out, name, spill = {}, None, 0
-    for line in res.stderr.splitlines():
-        m = re.search(r"Compiling entry function '\S*?([a-z_]+_kernel)E", line)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?([a-z_]+_kernel)", line)
         if m:
             name, spill = m.group(1), 0
         m = re.search(r"(\d+) bytes spill stores", line)

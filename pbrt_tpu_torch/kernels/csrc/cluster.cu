@@ -24,14 +24,16 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kCovClusters = 128;   // clusters per coverage block
 constexpr int kThreads = 256;       // threads per coverage block
-constexpr int kTraceThreads = 512;  // threads per closest-hit and any-hit block
+constexpr int kTraceThreads = 512;  // threads per compaction-probe block
 constexpr int kMaxLanes = 4;        // lanes per thread: tile <= 1024
 constexpr int kNF = 24;             // features per triangle slot
-constexpr int kMaxCH = 16;          // clusters per closest-hit round
+constexpr int kMaxCH = 16;          // clusters per overhead-probe round
 constexpr int kSlotMask = 2047;     // low mantissa bits of t carry the slot
 constexpr float kBig = 3e37f;
 
@@ -127,12 +129,45 @@ __global__ void __launch_bounds__(kThreads) coverage_kernel(
 }
 
 // ------------------------------------------------- shared by the tracers
-// The closest-hit and any-hit kernels (and the probes) are built from the
-// same helpers, so the two tracers cannot drift apart: one block per tile,
-// the tile's clusters taken `ch` at a time in corder order, each round's
-// features staged in shared memory, the round's joining lanes compacted
-// into a list, and a group of `ch` threads per listed lane, thread j
-// testing cluster j's k slots.
+// The closest-hit and any-hit kernels are built from the same helpers, so
+// the two cannot drift apart. One block of kLanes threads owns kLanes
+// consecutive lanes of a tile (one thread per lane for the lane's state)
+// and walks the tile's clusters kCH at a time in corder order. A round:
+//   1. each thread lists the round's (lane, cluster) pairs of its lane, a
+//      bit per cluster; the block gathers them into one lane mask per
+//      cluster (a ballot per warp) and cuts each mask into work items of
+//      at least 32 lanes;
+//   2. the round's units (a work item against 32 slots of its cluster)
+//      are handed out to warps. A warp loads its unit's slot features from
+//      `packed` into registers (feature f of 32 neighbouring slots: 128
+//      contiguous bytes), then runs over the item's lanes; each lane's ray
+//      comes from shared memory as a broadcast, each thread tests its own
+//      slot, and a hit goes into the lane's int in shared memory by
+//      atomicMin;
+//   3. each thread reads its lane's result.
+// What bounds it on the card: the rounds are sparse (on the bench's
+// bounce wavefronts more than half a block's rounds hold no pair, the
+// others a few tens), so a block's time goes to each unit's feature loads
+// from L2 and the round's barriers, not to issue, and the blocks of the
+// tiles with the longest cluster lists set a launch's time. So the
+// features never pass through shared memory (whose read pipe bounded the
+// earlier one-block-per-tile design at 96 bytes a test); shared memory
+// holds only the lanes' rays and results and the tile's cluster list
+// (about 13 KB a block on the bench scene), so six blocks share an SM; a
+// tile's lanes spread over tile/kLanes blocks; a work item spans enough
+// lanes that its feature loads serve a few tens of tests; and block b
+// takes the tile of rank b/q by descending count (tile_order_kernel, run
+// once before each tracer launch), so the longest chains of rounds start
+// first.
+constexpr int kLanes = 128;      // lanes (= threads) per tracer block (cluster_cuda.BLOCK)
+constexpr int kOrderThreads = 1024;   // the one block of tile_order_kernel
+constexpr int kMinBlocks = 6;    // blocks per SM the registers allow: at most 80 a thread
+constexpr int kWarps = kLanes / 32;
+constexpr int kItemLanes = 32;   // a work item's lanes, at least (but for a cluster's last)
+constexpr int kCH = 8;   // clusters per tracer round (cluster_cuda.CH)
+constexpr int kInt = 0x7FFFFFFF;
+static_assert(kLanes % 32 == 0 && kLanes <= 1024, "tracer block");
+
 struct SlotTest {
   float w0, w1, w2, nd, tnum;
 };
@@ -150,25 +185,27 @@ __device__ __forceinline__ float plucker(float dx, float dy, float dz, float mx,
 }
 
 struct LaneRay {
-  float ox, oy, oz, dx, dy, dz, mx, my, mz, tmin;
+  float ox, oy, oz, dx, dy, dz, mx, my, mz, tmin, tmax;
 };
 
-// f: one slot's 24 features, 16-byte aligned
-__device__ __forceinline__ SlotTest slot_test(const float* f, const LaneRay& L) {
-  const float ox = L.ox, oy = L.oy, oz = L.oz, dx = L.dx, dy = L.dy, dz = L.dz;
-  const float mx = L.mx, my = L.my, mz = L.mz;
-  const float4* F = reinterpret_cast<const float4*>(f);
-  const float4 a = F[0], b = F[1], c = F[2], d = F[3], e = F[4], g = F[5];
-  // a: U0 V0x | b: V0y V0z U1x U1y | c: U1z V1 | d: U2 V2x | e: V2y V2z nx ny
-  // g: nz k_plane
+// F(q): feature q of one slot, 0:3 U0 | 3:6 V0 | 6:9 U1 | 9:12 V1 |
+// 12:15 U2 | 15:18 V2 | 18:21 n | 21 k_plane. The three Plücker volumes
+// and n·d decide whether the line passes inside; the plane numerator is
+// needed only then.
+template <class F>
+__device__ __forceinline__ SlotTest slot_volumes(F f, const LaneRay& L) {
   SlotTest s;
-  s.w0 = plucker(dx, dy, dz, mx, my, mz, a.x, a.y, a.z, a.w, b.x, b.y);
-  s.w1 = plucker(dx, dy, dz, mx, my, mz, b.z, b.w, c.x, c.y, c.z, c.w);
-  s.w2 = plucker(dx, dy, dz, mx, my, mz, d.x, d.y, d.z, d.w, e.x, e.y);
-  const float nx = e.z, ny = e.w, nz = g.x;
-  s.nd = add(add(mul(dx, nx), mul(dy, ny)), mul(dz, nz));
-  s.tnum = add(add(add(mul(-nx, ox), mul(-ny, oy)), mul(-nz, oz)), g.y);
+  s.w0 = plucker(L.dx, L.dy, L.dz, L.mx, L.my, L.mz, f(0), f(1), f(2), f(3), f(4), f(5));
+  s.w1 = plucker(L.dx, L.dy, L.dz, L.mx, L.my, L.mz, f(6), f(7), f(8), f(9), f(10), f(11));
+  s.w2 = plucker(L.dx, L.dy, L.dz, L.mx, L.my, L.mz, f(12), f(13), f(14), f(15), f(16),
+                 f(17));
+  s.nd = add(add(mul(L.dx, f(18)), mul(L.dy, f(19))), mul(L.dz, f(20)));
   return s;
+}
+
+template <class F>
+__device__ __forceinline__ float slot_tnum(F f, const LaneRay& L) {
+  return add(add(add(mul(-f(18), L.ox), mul(-f(19), L.oy)), mul(-f(20), L.oz)), f(21));
 }
 
 // The ray's line passes inside the triangle: the three Plücker volumes
@@ -183,10 +220,9 @@ __device__ __forceinline__ float slot_t(const SlotTest& s) {
 }
 
 // Stages clusters cid[0..ch)'s features into feat (ch, k·kNF + 4) floats,
-// slot-major (24 floats a slot, read as six float4), each cluster's block
-// padded by one float4 so that the ch threads of a group, which read the
-// same slot of ch clusters, hit distinct banks. Callers synchronise before
-// reading feat.
+// slot-major (24 floats a slot), each cluster's block padded by one float4
+// so that threads reading the same slot of ch clusters hit distinct banks.
+// Callers synchronise before reading feat. (The overhead probe's staging.)
 __device__ __forceinline__ void stage_clusters(const float* __restrict__ packed,
                                                const int* cid, int ch, int k,
                                                float* feat) {
@@ -203,7 +239,7 @@ __device__ __forceinline__ void stage_clusters(const float* __restrict__ packed,
 // list in ascending order and returns their count. Every thread of the
 // block calls it (blockDim a multiple of 32, at most kTraceThreads); it
 // ends with a barrier, so list and whatever the block wrote before the
-// call are visible to all threads after it.
+// call are visible to all threads after it. (The compaction probe's.)
 template <class Pred>
 __device__ __forceinline__ int compact_lanes(int tile, Pred pred, int* list,
                                              int* s_scan) {
@@ -233,289 +269,392 @@ __device__ __forceinline__ int compact_lanes(int tile, Pred pred, int* list,
   return base;
 }
 
-// lane state in shared memory, (planes, tile) floats: the ray planes both
-// tracers share, then each kernel's own
-enum { kOx, kOy, kOz, kDx, kDy, kDz, kMx, kMy, kMz, kTmin, kRayPlanes };
+// The block's shared state: each lane's ray as three float4 (ox oy oz dx |
+// dy dz mx my | mz tmin tmax −), its int result of the round (closest hit:
+// the (t|slot) key; any hit: the position j·k + kk of its first hit), the
+// round's lane mask of each cluster, the work items and the next unit to
+// hand out. Behind it, in dynamic shared memory, the tile's cluster ids
+// (and entry t) by position.
+struct TraceShared {
+  float4 ray[3 * kLanes];
+  int res[kLanes];
+  unsigned mask[kCH][kWarps];
+  int items[kCH * kWarps];   // j << 16 | first mask word << 8 | end word
+  int n_items;
+  int next;
+};
 
-// Stages lane i's ray (global index g) into the state planes: origin,
-// direction, Plücker moment m = o × d and the clamped t_min. Returns the
-// clamped t_max.
-__device__ __forceinline__ float stage_ray(const float* __restrict__ rays,
-                                           size_t nl, size_t g, float* st,
-                                           int tile, int i) {
+
+// The tracers' tile order, made once before each tracer launch by one
+// block: order[r] is the tile of rank r by descending count (clamped to
+// W; ties in any order), so the tiles with the longest cluster lists,
+// whose blocks walk the most rounds, start first. A histogram of the
+// counts in shared memory (bin W − count), its exclusive prefix sums, then
+// each tile's place by an atomic on its bin. The order only schedules: a
+// block's results depend on its tile alone.
+__global__ void __launch_bounds__(kOrderThreads) tile_order_kernel(
+    const int* __restrict__ counts, int nt, int W, int* __restrict__ order) {
+  extern __shared__ int bins[];   // (W + 1,)
+  __shared__ int warp_sum[kOrderThreads / 32];
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  for (int b = threadIdx.x; b <= W; b += kOrderThreads) bins[b] = 0;
+  __syncthreads();
+  for (int t = threadIdx.x; t < nt; t += kOrderThreads)
+    atomicAdd(&bins[W - min(max(counts[t], 0), W)], 1);
+  __syncthreads();
+  const int per = (W + kOrderThreads) / kOrderThreads;   // bins a thread, W + 1 in all
+  const int b0 = min(threadIdx.x * per, W + 1), b1 = min(b0 + per, W + 1);
+  int sum = 0;
+  for (int b = b0; b < b1; ++b) sum += bins[b];
+  int inc = sum;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, inc, off);
+    if (wl >= off) inc += y;
+  }
+  if (wl == 31) warp_sum[warp] = inc;
+  __syncthreads();
+  int run = inc - sum;
+  for (int w = 0; w < warp; ++w) run += warp_sum[w];
+  for (int b = b0; b < b1; ++b) {   // a thread's own bins: no other reads them here
+    const int h = bins[b];
+    bins[b] = run;
+    run += h;
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < nt; t += kOrderThreads)
+    order[atomicAdd(&bins[W - min(max(counts[t], 0), W)], 1)] = t;
+}
+
+// Stages lane i's ray (global index g): origin, direction, Plücker moment
+// m = o × d, the clamped t_min and t_max. Returns the clamped t_max.
+__device__ __forceinline__ float stage_ray(const float* __restrict__ rays, size_t nl,
+                                           size_t g, TraceShared& S, int i) {
   const float ox = rays[g], oy = rays[nl + g], oz = rays[2 * nl + g];
   const float dx = rays[3 * nl + g], dy = rays[4 * nl + g], dz = rays[5 * nl + g];
-  st[kOx * tile + i] = ox;
-  st[kOy * tile + i] = oy;
-  st[kOz * tile + i] = oz;
-  st[kDx * tile + i] = dx;
-  st[kDy * tile + i] = dy;
-  st[kDz * tile + i] = dz;
-  st[kMx * tile + i] = __fsub_rn(mul(oy, dz), mul(oz, dy));
-  st[kMy * tile + i] = __fsub_rn(mul(oz, dx), mul(ox, dz));
-  st[kMz * tile + i] = __fsub_rn(mul(ox, dy), mul(oy, dx));
-  st[kTmin * tile + i] = clampf(rays[6 * nl + g], -kBig, kBig);
-  return clampf(rays[7 * nl + g], -kBig, kBig);
+  const float mx = __fsub_rn(mul(oy, dz), mul(oz, dy));
+  const float my = __fsub_rn(mul(oz, dx), mul(ox, dz));
+  const float mz = __fsub_rn(mul(ox, dy), mul(oy, dx));
+  const float tmin = clampf(rays[6 * nl + g], -kBig, kBig);
+  const float tmax = clampf(rays[7 * nl + g], -kBig, kBig);
+  S.ray[3 * i] = make_float4(ox, oy, oz, dx);
+  S.ray[3 * i + 1] = make_float4(dy, dz, mx, my);
+  S.ray[3 * i + 2] = make_float4(mz, tmin, tmax, 0.0f);
+  return tmax;
 }
 
-__device__ __forceinline__ LaneRay lane_ray(const float* st, int tile, int i) {
-  return LaneRay{st[kOx * tile + i], st[kOy * tile + i], st[kOz * tile + i],
-                 st[kDx * tile + i], st[kDy * tile + i], st[kDz * tile + i],
-                 st[kMx * tile + i], st[kMy * tile + i], st[kMz * tile + i],
-                 st[kTmin * tile + i]};
+__device__ __forceinline__ LaneRay lane_ray(const TraceShared& S, int i) {
+  const float4 a = S.ray[3 * i], b = S.ray[3 * i + 1], c = S.ray[3 * i + 2];
+  return LaneRay{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x, c.y, c.z};
 }
 
-// Lane i of tile t enters cluster cid (its covbit).
-__device__ __forceinline__ bool covered(const int* __restrict__ covbits, int t,
-                                        int nb32, int tile, int i, int cid) {
-  return (covbits[((size_t)t * nb32 + (cid >> 5)) * tile + i] >> (cid & 31)) & 1;
+// The covbit words of round r's clusters for this thread's lane (0 past
+// the count): loaded a round ahead, so their latency hides behind the
+// round's tests. cov points at the lane's word 0, words `tile` apart.
+__device__ __forceinline__ void load_cov_words(const int* __restrict__ cov, int tile,
+                                               const int* s_cid, int r, int n_count,
+                                               int (&cw)[kCH]) {
+#pragma unroll
+  for (int j = 0; j < kCH; ++j) {
+    const int p = r * kCH + j;
+    cw[j] = p < n_count ? cov[(size_t)(s_cid[p] >> 5) * tile] : 0;
+  }
+}
+
+// Step 1 of a round: every thread passes its lane's pair bits (bit j: the
+// pair with the round's cluster j); mask[j] collects them. The caller
+// synchronises, cuts the masks into work items (make_items) and
+// synchronises again before step 2; n_items and next were reset in the
+// previous round's step 3.
+__device__ __forceinline__ void gather_pairs(unsigned bits, TraceShared& S) {
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < kCH; ++j) {
+    const unsigned b = __ballot_sync(0xffffffffu, (bits >> j) & 1u);
+    if (wl == 0) S.mask[j][warp] = b;
+  }
+}
+
+// After the barrier that follows gather_pairs: thread j cuts cluster j's
+// mask words into work items of at least kItemLanes lanes (a cluster's
+// last item may have fewer), so that a unit's feature loads serve a few
+// tens of tests even in sparse rounds. The caller synchronises after it.
+__device__ __forceinline__ void make_items(TraceShared& S) {
+  if (threadIdx.x >= kCH) return;
+  const int j = threadIdx.x;
+  int w0 = 0, acc = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    acc += __popc(S.mask[j][w]);
+    if (acc == 0) {
+      w0 = w + 1;
+    } else if (acc >= kItemLanes || w == kWarps - 1) {
+      S.items[atomicAdd(&S.n_items, 1)] = j << 16 | w0 << 8 | (w + 1);
+      acc = 0;
+      w0 = w + 1;
+    }
+  }
+}
+
+// Step 2 of a round: the warps take the round's units (a work item's
+// lanes against 32 slots of its cluster) one at a time; a warp loads the
+// unit's slot features from `packed` into registers, one slot a thread,
+// then runs over the item's lanes. on(i, j, kk, t, L) is called for every
+// slot kk whose triangle the line of lane i passes inside, with its plane
+// t. Returns the slot tests run by this warp's lane-0 thread (32 per lane
+// and unit), 0 on the other threads.
+template <class On>
+__device__ __forceinline__ unsigned long long test_units(
+    const float* __restrict__ packed, const int* s_cid, int k, TraceShared& S, On on) {
+  const int wl = threadIdx.x & 31;
+  const int nchunk = k >> 5;               // a power of two (bad_trace_shape)
+  const int csh = __ffs(nchunk) - 1;
+  const int n_units = S.n_items * nchunk;
+  unsigned long long n = 0;
+  for (;;) {
+    int u = 0;
+    if (wl == 0) u = atomicAdd(&S.next, 1);
+    u = __shfl_sync(0xffffffffu, u, 0);
+    if (u >= n_units) break;
+    const int item = S.items[u >> csh];
+    const int j = item >> 16;
+    const int kk = (u & (nchunk - 1)) * 32 + wl;
+    const float* src = packed + (size_t)s_cid[j] * kNF * k + kk;
+    float f[22];
+#pragma unroll
+    for (int q = 0; q < 22; ++q) f[q] = __ldg(src + q * k);
+    const auto F = [&](int q) { return f[q]; };
+    for (int w = (item >> 8) & 255; w < (item & 255); ++w) {
+      unsigned bits = S.mask[j][w];
+      if (wl == 0) n += 32u * __popc(bits);
+      while (bits) {
+        const int i = w * 32 + __ffs(bits) - 1;
+        bits &= bits - 1u;
+        const LaneRay L = lane_ray(S, i);
+        SlotTest sl = slot_volumes(F, L);
+        if (slot_inside(sl)) {
+          sl.tnum = slot_tnum(F, L);
+          on(i, j, kk, slot_t(sl), L);
+        }
+      }
+    }
+  }
+  return n;
+}
+
+// Adds a block's counts to a global counter: a warp sum, then one atomic
+// per warp.
+__device__ __forceinline__ void add_count(unsigned long long* __restrict__ out,
+                                          unsigned long long n) {
+  for (int off = 16; off; off >>= 1) n += __shfl_xor_sync(0xffffffffu, n, off);
+  if ((threadIdx.x & 31) == 0 && n) atomicAdd(out, n);
 }
 
 // ---------------------------------------------------------- closest hit
-// A lane joins a round iff it enters one of the round's clusters (its
-// covbit) no later than its best hit so far — decided for every lane at
-// the start of the round — and then tests all ch·k slots. The (t|slot)
-// key keeps the slot in t's low 11 mantissa bits so one min picks the
-// winner; the group's minimum key comes from warp shuffles. Shadow lanes
-// (anyhit > 0) drop their best t to −1 after their first hit. The tile
-// stops when the next round's entry t >= max best t. `slot_tests`, when
-// given, accumulates the slot tests run; `needed_tests` the slot tests the
-// function needs: the k slots of each (lane, cluster) pair whose covbit is
-// set and whose entry t is within the lane's best t, pad positions past
-// counts left out (the work that bounds the kernel). Shared memory: 98,432
-// bytes of features (ch = 8, k = 128) + 16 state planes and the list,
-// 69,632 bytes at tile 1024: one block of 16 warps per SM.
-enum { kTbest = kRayPlanes, kTb0, kTb1, kTb2, kSlot, kAh, kClosestPlanes };
-
-__global__ void __launch_bounds__(kTraceThreads) closest_kernel(
+// Replaces traverse_tiles (pbrt_tpu/kernels/cluster_pallas.py:876, body
+// _make_closest_kernel_lc). Closest hit per lane over the tile's covered
+// clusters in ascending entry t. A round's pairs are decided at its start
+// (the LC kernel's frozen mask): the lane's covbit of cluster j is set,
+// the position lies within counts[t], and the cluster's tile entry t is
+// no later than the lane's best t. The (t|slot) key keeps the round's slot
+// j·k + kk in t's low 11 mantissa bits, so an int atomicMin in shared
+// memory picks the winner whatever the order of the hits; after the
+// round's barrier each thread keeps its lane's winning slot, and resolves
+// the last one into t and barycentrics at the end (features from
+// `packed`). Shadow lanes (anyhit > 0) drop their best t to −1 after their
+// first hit. A block stops when the next round's entry t >= the max best t
+// of its own lanes (no lane of the block could join a later pair).
+// `slot_tests` accumulates the slot tests run, k per pair; `needed_tests`
+// the tests the function needs, k per pair: the two are equal, the kernel
+// runs no test the data does not need. Bound on the card: the float32
+// operations of the needed tests.
+__global__ void __launch_bounds__(kLanes, kMinBlocks) closest_kernel(
     const float* __restrict__ packed, const float* __restrict__ rays,
     const float* __restrict__ anyhit, const int* __restrict__ corder,
     const float* __restrict__ tnear, const int* __restrict__ counts,
     const int* __restrict__ covbits, float* __restrict__ t_out,
     int* __restrict__ slot_out, float* __restrict__ bary_out,
     unsigned long long* __restrict__ slot_tests,
-    unsigned long long* __restrict__ needed_tests, int nt, int tile, int W,
-    int nb32, int k, int ch) {
-  extern __shared__ float4 smem4[];
-  const int cstride = k * kNF + 4;                 // floats per staged cluster
-  float* feat = reinterpret_cast<float*>(smem4);   // (ch, k·kNF + 4)
-  float* st = feat + (size_t)ch * cstride;         // (kClosestPlanes, tile)
-  int* list = reinterpret_cast<int*>(st + (size_t)kClosestPlanes * tile);   // (tile,)
-  __shared__ int s_cid[kMaxCH];
-  __shared__ float s_tn[kMaxCH];
-  __shared__ float s_red[kTraceThreads / 32];
-  __shared__ int s_scan[kTraceThreads / 32 + 1];
-  __shared__ int s_done;
-  const int t = blockIdx.x;
-  const size_t nl = (size_t)nt * tile;
-  const int n_count = counts[t];
-  const int n_rounds = (n_count + ch - 1) / ch;
+    unsigned long long* __restrict__ needed_tests, const int* __restrict__ order,
+    int nt, int tile, int W, int nb32, int k) {
+  __shared__ TraceShared S;
+  __shared__ float s_red[kWarps];
+  extern __shared__ int s_dyn[];
+  int* s_cid = s_dyn;                                     // (W,)
+  float* s_tn = reinterpret_cast<float*>(s_dyn + W);      // (W,)
+  const int q = tile / kLanes;
+  const int t = order[blockIdx.x / q];
+  const int i = threadIdx.x;                      // this thread's lane
+  const int li = (blockIdx.x % q) * kLanes + i;   // its index in the tile
+  const size_t nl = (size_t)nt * tile, g = (size_t)t * tile + li;
+  const int n_count = min(counts[t], W);   // the staged list holds W positions
+  const int n_rounds = (n_count + kCH - 1) / kCH;
   float* bary0 = bary_out + (size_t)t * 2 * tile;
   if (n_rounds == 0) {   // tile enters no cluster: every lane misses
-    for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-      const size_t g = (size_t)t * tile + i;
-      t_out[g] = rays[7 * nl + g];
-      slot_out[g] = -1;
-      bary0[i] = 0.0f;
-      bary0[tile + i] = 0.0f;
-    }
+    t_out[g] = rays[7 * nl + g];
+    slot_out[g] = -1;
+    bary0[li] = 0.0f;
+    bary0[tile + li] = 0.0f;
     return;
   }
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const size_t g = (size_t)t * tile + i;
-    const float tmax = stage_ray(rays, nl, g, st, tile, i);
-    st[kTbest * tile + i] = tmax;
-    st[kTb0 * tile + i] = tmax;
-    st[kTb1 * tile + i] = 0.0f;
-    st[kTb2 * tile + i] = 0.0f;
-    st[kSlot * tile + i] = __int_as_float(-1);
-    st[kAh * tile + i] = (anyhit != nullptr && anyhit[g] > 0.0f) ? 1.0f : 0.0f;
+  for (int p = i; p < n_count; p += kLanes) {
+    s_cid[p] = corder[(size_t)t * W + p];
+    s_tn[p] = tnear[(size_t)t * W + p];
   }
-  const int chk = ch * k;
-  const int j = threadIdx.x % ch;                  // this thread's cluster
-  const int group = threadIdx.x / ch;
-  const int n_groups = blockDim.x / ch;
+  const float tmax = stage_ray(rays, nl, g, S, i);
+  float tbest = tmax;
+  int slot = -1;
+  const bool ah = anyhit != nullptr && anyhit[g] > 0.0f;
+  S.res[i] = kInt;
+  if (i == 0) S.n_items = S.next = 0;
+  const int* cov = covbits + (size_t)t * nb32 * tile + li;
   const int wl = threadIdx.x & 31;
-  const unsigned gmask = (ch == 32 ? 0xffffffffu : ((1u << ch) - 1u) << (wl & ~(ch - 1)));
   unsigned long long n_tests = 0, n_needed = 0;
+  int cw[kCH];
+  const auto block_max = [&](float x) {   // every thread gets the max
+    for (int off = 16; off; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+    if (wl == 0) s_red[threadIdx.x >> 5] = x;
+    __syncthreads();
+    for (int w = 0; w < kWarps; ++w) x = fmaxf(x, s_red[w]);
+    return x;
+  };
+  __syncthreads();
+  load_cov_words(cov, tile, s_cid, 0, n_count, cw);
   for (int r = 0; r < n_rounds; ++r) {
-    __syncthreads();   // the previous round's shared-memory reads are done
-    if (threadIdx.x < ch) {
-      s_cid[threadIdx.x] = corder[(size_t)t * W + r * ch + threadIdx.x];
-      s_tn[threadIdx.x] = tnear[(size_t)t * W + r * ch + threadIdx.x];
+    unsigned bits = 0;
+#pragma unroll
+    for (int j = 0; j < kCH; ++j) {
+      const int p = r * kCH + j;
+      if (p < n_count && tbest >= s_tn[p] && ((cw[j] >> (s_cid[p] & 31)) & 1))
+        bits |= 1u << j;
     }
+    n_needed += (unsigned long long)k * __popc(bits);
+    gather_pairs(bits, S);
     __syncthreads();
-    stage_clusters(packed, s_cid, ch, k, feat);
-    // the round's joining lanes, from best t at the start of the round
-    const int m = compact_lanes(tile, [&](int i) {
-      const float tb = st[kTbest * tile + i];
-      bool mask = false;
-      for (int jj = 0; jj < ch; ++jj) {
-        mask |= covered(covbits, t, nb32, tile, i, s_cid[jj]) && (tb >= s_tn[jj]);
-      }
-      return mask;
-    }, list, s_scan);
-    for (int e = group; e < m; e += n_groups) {
-      const int i = list[e];
-      const LaneRay L = lane_ray(st, tile, i);
-      if (needed_tests != nullptr && r * ch + j < n_count &&
-          covered(covbits, t, nb32, tile, i, s_cid[j]) &&
-          st[kTbest * tile + i] >= s_tn[j])
-        n_needed += k;
-      int kmin = 0x7FFFFFFF;
-      const float* fj = feat + (size_t)j * cstride;
-      for (int kk = 0; kk < k; ++kk) {
-        const SlotTest sl = slot_test(fj + kk * kNF, L);
-        if (!slot_inside(sl)) continue;
-        const float tt = slot_t(sl);
-        if (!(tt > L.tmin)) continue;
-        kmin = min(kmin, (__float_as_int(tt) & ~kSlotMask) | (j * k + kk));
-      }
-      for (int off = ch >> 1; off; off >>= 1)
-        kmin = min(kmin, __shfl_xor_sync(gmask, kmin, off));
-      if (j == 0) {
-        n_tests += chk;
-        const float tj = __int_as_float(kmin & ~kSlotMask);
-        if (tj < st[kTbest * tile + i]) {
-          const int s = kmin & kSlotMask;
-          const SlotTest sl = slot_test(feat + (size_t)(s / k) * cstride + (s % k) * kNF, L);
-          const float snd = fabsf(sl.nd) > 1e-12f ? sl.nd : 1e-12f;
-          const float sum = add(add(sl.w0, sl.w1), sl.w2);
-          const float inv = 1.0f / (fabsf(sum) > 1e-30f ? sum : 1e-30f);
-          st[kTb0 * tile + i] = sl.tnum / snd;
-          st[kTb1 * tile + i] = mul(sl.w2, inv);
-          st[kTb2 * tile + i] = mul(sl.w0, inv);
-          st[kSlot * tile + i] = __int_as_float(s_cid[s / k] * k + s % k);
-          st[kTbest * tile + i] = st[kAh * tile + i] > 0.0f ? -1.0f : tj;
-        }
-      }
+    make_items(S);
+    __syncthreads();
+    load_cov_words(cov, tile, s_cid, r + 1, n_count, cw);   // next round's, ahead
+    n_tests += test_units(packed, s_cid + r * kCH, k, S,
+                          [&](int li2, int j, int kk, float tt, const LaneRay& L) {
+      if (tt > L.tmin)
+        atomicMin(&S.res[li2], (__float_as_int(tt) & ~kSlotMask) | (j * k + kk));
+    });
+    __syncthreads();
+    const int kmin = S.res[i];
+    S.res[i] = kInt;
+    if (i == 0) S.n_items = S.next = 0;
+    const float tj = __int_as_float(kmin & ~kSlotMask);
+    if (tj < tbest) {   // never for kInt: its t bits are a NaN
+      const int s = kmin & kSlotMask, jw = s / k;
+      slot = s_cid[r * kCH + jw] * k + (s - jw * k);
+      tbest = ah ? -1.0f : tj;
     }
-    __syncthreads();
-    // ordered-entry-t pruning over the whole tile
-    float lmax = -CUDART_INF_F;
-    for (int i = threadIdx.x; i < tile; i += blockDim.x)
-      lmax = fmaxf(lmax, st[kTbest * tile + i]);
-    for (int off = 16; off; off >>= 1)
-      lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, off));
-    if (wl == 0) s_red[threadIdx.x >> 5] = lmax;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float mm = s_red[0];
-      for (int w = 1; w < kTraceThreads / 32; ++w) mm = fmaxf(mm, s_red[w]);
-      s_done = tnear[(size_t)t * W + min((r + 1) * ch, W - 1)] >= mm;
-    }
-    __syncthreads();
-    if (s_done) break;
+    // ordered-entry-t pruning over the block's lanes
+    if (r + 1 < n_rounds && s_tn[(r + 1) * kCH] >= block_max(tbest)) break;
   }
-  if (slot_tests != nullptr && n_tests) atomicAdd(slot_tests, n_tests);
-  if (needed_tests != nullptr && n_needed) atomicAdd(needed_tests, n_needed);
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const size_t g = (size_t)t * tile + i;
-    t_out[g] = st[kTb0 * tile + i];
-    slot_out[g] = __float_as_int(st[kSlot * tile + i]);
-    bary0[i] = st[kTb1 * tile + i];
-    bary0[tile + i] = st[kTb2 * tile + i];
+  if (slot_tests != nullptr) add_count(slot_tests, n_tests);
+  if (needed_tests != nullptr) add_count(needed_tests, n_needed);
+  float tb0 = tmax, tb1 = 0.0f, tb2 = 0.0f;
+  if (slot >= 0) {   // the winning slot, resolved once
+    const float* src = packed + (size_t)(slot / k) * kNF * k + slot % k;
+    const auto F = [&](int f) { return __ldg(src + (size_t)f * k); };
+    const LaneRay L = lane_ray(S, i);
+    SlotTest sl = slot_volumes(F, L);
+    sl.tnum = slot_tnum(F, L);
+    const float snd = fabsf(sl.nd) > 1e-12f ? sl.nd : 1e-12f;
+    const float sum = add(add(sl.w0, sl.w1), sl.w2);
+    const float inv = 1.0f / (fabsf(sum) > 1e-30f ? sum : 1e-30f);
+    tb0 = sl.tnum / snd;
+    tb1 = mul(sl.w2, inv);
+    tb2 = mul(sl.w0, inv);
   }
+  t_out[g] = tb0;
+  slot_out[g] = slot;
+  bary0[li] = tb1;
+  bary0[tile + li] = tb2;
 }
 
 // -------------------------------------------------------------- any hit
-// Per lane: does any triangle of the tile's covered clusters lie at
-// tmin < t < tmax — the exact window, not the (t|slot) key of the fused
-// shadow lanes above. A round's lanes are those that enter one of its
-// clusters, are live (tmax > tmin) and are not yet occluded at the start
-// of the round: the list is built once per round, so lanes occluded during
-// the round do not change it (the frozen mask of the LC kernel). Thread j
-// of a lane's group stops at cluster j's first hit in slot order; a slot
-// test counted in `slot_tests` is a slot test run, so the count is exact
-// and the plain version reproduces it. `needed_tests` counts the work the
-// function needs: per lane, the slots of the clusters it enters, in corder
-// and slot order, up to its first hit — the other clusters of the round,
-// pad positions past counts and the slots after a hit in an earlier
-// cluster of the round are left out. The tile stops before a round in
-// which every live lane is occluded (a block-wide vote; padding lanes,
-// t_max = −1, count as done). No per-lane best t, barycentrics or slot: 12 state
-// planes and the list, 53,248 bytes at tile 1024, plus the 98,432 bytes
-// of features (ch = 8, k = 128) — 151,680 bytes, still one block of 16
-// warps per SM (two would need 303 KB).
-enum { kTmax = kRayPlanes, kOcc, kAnyPlanes };
-
-__global__ void __launch_bounds__(kTraceThreads) occluded_kernel(
+// Replaces occluded_tiles (pbrt_tpu/kernels/cluster_pallas.py:924, body
+// _make_anyhit_kernel_lc). Per lane: does any triangle of the tile's
+// covered clusters lie at tmin < t < tmax — the exact window, not the
+// (t|slot) key of the fused shadow lanes above. A round's pairs are
+// decided at its start (the frozen mask): the lane's covbit of cluster j
+// is set, the position lies within the count, and the lane is live
+// (tmax > tmin) and not yet occluded; lanes occluded during the round
+// leave at the next. A hit writes its position j·k + kk into the lane's
+// int by atomicMin, so the lane's first hit in (cluster, slot) order is
+// known whatever the order of the hits. `slot_tests` accumulates the slot
+// tests run, k per pair; `needed_tests` the tests the function needs: per
+// lane, k per pair before its first hitting pair and that pair's slots
+// up to its first hit. A block stops before a round in which every live
+// lane of its own is occluded (a block-wide vote; padding lanes, t_max =
+// −1, count as done). Bound on the card: the float32 operations of the
+// needed tests.
+__global__ void __launch_bounds__(kLanes, kMinBlocks) occluded_kernel(
     const float* __restrict__ packed, const float* __restrict__ rays,
     const int* __restrict__ corder, const int* __restrict__ counts,
     const int* __restrict__ covbits, unsigned char* __restrict__ occ_out,
     unsigned long long* __restrict__ slot_tests,
-    unsigned long long* __restrict__ needed_tests, int nt, int tile, int W,
-    int nb32, int k, int ch) {
-  extern __shared__ float4 smem4[];
-  const int cstride = k * kNF + 4;
-  float* feat = reinterpret_cast<float*>(smem4);   // (ch, k·kNF + 4)
-  float* st = feat + (size_t)ch * cstride;         // (kAnyPlanes, tile)
-  int* list = reinterpret_cast<int*>(st + (size_t)kAnyPlanes * tile);   // (tile,)
-  __shared__ int s_cid[kMaxCH];
-  __shared__ int s_scan[kTraceThreads / 32 + 1];
-  const int t = blockIdx.x;
-  const size_t nl = (size_t)nt * tile;
-  const int n_count = counts[t];
-  const int n_rounds = (n_count + ch - 1) / ch;
-  unsigned char* occ_t = occ_out + (size_t)t * tile;
+    unsigned long long* __restrict__ needed_tests, const int* __restrict__ order,
+    int nt, int tile, int W, int nb32, int k) {
+  __shared__ TraceShared S;
+  extern __shared__ int s_cid[];   // (W,)
+  const int q = tile / kLanes;
+  const int t = order[blockIdx.x / q];
+  const int i = threadIdx.x;
+  const int li = (blockIdx.x % q) * kLanes + i;
+  const size_t nl = (size_t)nt * tile, g = (size_t)t * tile + li;
+  const int n_count = min(counts[t], W);   // the staged list holds W positions
+  const int n_rounds = (n_count + kCH - 1) / kCH;
   if (n_rounds == 0) {   // tile enters no cluster: nothing is occluded
-    for (int i = threadIdx.x; i < tile; i += blockDim.x) occ_t[i] = 0;
+    occ_out[g] = 0;
     return;
   }
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    st[kTmax * tile + i] = stage_ray(rays, nl, (size_t)t * tile + i, st, tile, i);
-    st[kOcc * tile + i] = 0.0f;
-  }
-  const int j = threadIdx.x % ch;
-  const int group = threadIdx.x / ch;
-  const int n_groups = blockDim.x / ch;
-  const int wl = threadIdx.x & 31;
-  const unsigned gmask = (ch == 32 ? 0xffffffffu : ((1u << ch) - 1u) << (wl & ~(ch - 1)));
+  for (int p = i; p < n_count; p += kLanes) s_cid[p] = corder[(size_t)t * W + p];
+  const float tmax = stage_ray(rays, nl, g, S, i);
+  const bool live = tmax > clampf(rays[6 * nl + g], -kBig, kBig);
+  bool occ = false;
+  S.res[i] = kInt;
+  if (i == 0) S.n_items = S.next = 0;
+  const int* cov = covbits + (size_t)t * nb32 * tile + li;
   unsigned long long n_tests = 0, n_needed = 0;
+  int cw[kCH];
+  __syncthreads();
+  load_cov_words(cov, tile, s_cid, 0, n_count, cw);
   for (int r = 0; r < n_rounds; ++r) {
-    __syncthreads();   // lane set-up, or the previous round's tests, are done
-    int done = 1;
-    for (int i = threadIdx.x; i < tile; i += blockDim.x)
-      done &= (st[kOcc * tile + i] != 0.0f) || !(st[kTmax * tile + i] > st[kTmin * tile + i]);
-    if (__syncthreads_and(done)) break;
-    if (threadIdx.x < ch) s_cid[threadIdx.x] = corder[(size_t)t * W + r * ch + threadIdx.x];
+    // set-up, or the previous round's step 3, is done
+    if (__syncthreads_and(occ || !live)) break;
+    unsigned bits = 0;
+    if (live && !occ) {
+#pragma unroll
+      for (int j = 0; j < kCH; ++j) {
+        const int p = r * kCH + j;
+        if (p < n_count && ((cw[j] >> (s_cid[p] & 31)) & 1)) bits |= 1u << j;
+      }
+    }
+    gather_pairs(bits, S);
     __syncthreads();
-    stage_clusters(packed, s_cid, ch, k, feat);
-    const int m = compact_lanes(tile, [&](int i) {
-      if (st[kOcc * tile + i] != 0.0f || !(st[kTmax * tile + i] > st[kTmin * tile + i]))
-        return false;
-      bool cov = false;
-      for (int jj = 0; jj < ch; ++jj) cov |= covered(covbits, t, nb32, tile, i, s_cid[jj]);
-      return cov;
-    }, list, s_scan);
-    for (int e = group; e < m; e += n_groups) {
-      const int i = list[e];
-      const LaneRay L = lane_ray(st, tile, i);
-      const float tmax = st[kTmax * tile + i];
-      const float* fj = feat + (size_t)j * cstride;
-      int kk = 0;
-      bool hit = false;
-      for (; kk < k && !hit; ++kk) {
-        const SlotTest sl = slot_test(fj + kk * kNF, L);
-        if (!slot_inside(sl)) continue;
-        const float tt = slot_t(sl);
-        hit = tt > L.tmin && tt < tmax;
-      }
-      n_tests += kk;
-      if (needed_tests != nullptr) {
-        // needed: cluster j is entered and no entered cluster j' < j hit
-        const bool need = r * ch + j < n_count && covered(covbits, t, nb32, tile, i, s_cid[j]);
-        const unsigned first = __ballot_sync(gmask, need && hit) & gmask;
-        if (need && !(first & ((1u << wl) - 1u))) n_needed += kk;
-      }
-      if (hit) st[kOcc * tile + i] = 1.0f;
+    make_items(S);
+    __syncthreads();
+    load_cov_words(cov, tile, s_cid, r + 1, n_count, cw);   // next round's, ahead
+    n_tests += test_units(packed, s_cid + r * kCH, k, S,
+                          [&](int li2, int j, int kk, float tt, const LaneRay& L) {
+      if (tt > L.tmin && tt < L.tmax) atomicMin(&S.res[li2], j * k + kk);
+    });
+    __syncthreads();
+    const int first = S.res[i];
+    S.res[i] = kInt;
+    if (i == 0) S.n_items = S.next = 0;
+    if (first != kInt) {
+      const int jf = first / k;
+      occ = true;
+      n_needed += (unsigned long long)k * __popc(bits & ((1u << jf) - 1u)) + first - jf * k + 1;
+    } else {
+      n_needed += (unsigned long long)k * __popc(bits);
     }
   }
-  if (slot_tests != nullptr && n_tests) atomicAdd(slot_tests, n_tests);
-  if (needed_tests != nullptr && n_needed) atomicAdd(needed_tests, n_needed);
-  __syncthreads();
-  for (int i = threadIdx.x; i < tile; i += blockDim.x)
-    occ_t[i] = st[kOcc * tile + i] != 0.0f;
+  if (slot_tests != nullptr) add_count(slot_tests, n_tests);
+  if (needed_tests != nullptr) add_count(needed_tests, n_needed);
+  occ_out[g] = occ;
 }
 
 // --------------------------------------------------------------- probes
@@ -595,9 +734,76 @@ __global__ void __launch_bounds__(1024) overhead_probe_kernel(
 }
 
 bool bad_trace_shape(int tile, int W, int k, int ch) {
-  // a group of ch threads shares one warp; k slots keep float4 alignment
-  return tile <= 0 || tile > 1024 || ch < 1 || ch > kMaxCH || (ch & (ch - 1)) ||
-         ch * k > kSlotMask + 1 || W % ch != 0;
+  // whole blocks; k slots in a power of two of 32-slot units; the round's
+  // pair bits and the (t|slot) key as the kernels lay them out
+  const int nchunk = k / 32;
+  return tile <= 0 || tile % kLanes || ch != kCH || k <= 0 || k % 32 ||
+         (nchunk & (nchunk - 1)) || ch * k > kSlotMask + 1 || W <= 0 || W % ch != 0;
+}
+
+// Dynamic shared memory beyond the default 48 KB (with the kernel's
+// static part, `fixed` bytes) needs the attribute.
+template <class K>
+cudaError_t allow_smem(K kernel, int dyn, int fixed) {
+  if (dyn + fixed + 64 <= 48 * 1024) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// Stream-ordered scratch for a launch's tile order, from a memory pool of
+// this library's own on the current device, which keeps its memory
+// between launches (the device's default pool hands it back to the
+// driver at every synchronisation).
+cudaError_t order_alloc(int nt, cudaStream_t stream, int** order) {
+  constexpr int kMaxDevices = 64;
+  static std::mutex mu;
+  static cudaMemPool_t pools[kMaxDevices] = {};
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (pools[dev] == nullptr) {
+      cudaMemPoolProps props = {};
+      props.allocType = cudaMemAllocationTypePinned;
+      props.location.type = cudaMemLocationTypeDevice;
+      props.location.id = dev;
+      cudaMemPool_t pool;
+      if ((e = cudaMemPoolCreate(&pool, &props)) != cudaSuccess) return e;
+      uint64_t keep = UINT64_MAX;
+      e = cudaMemPoolSetAttribute(pool, cudaMemPoolAttrReleaseThreshold, &keep);
+      if (e != cudaSuccess) return e;
+      pools[dev] = pool;
+    }
+  }
+  return cudaMallocFromPoolAsync((void**)order, (size_t)nt * sizeof(int), pools[dev], stream);
+}
+
+// A tracer launch: checks its shape, allows its dynamic shared memory
+// (dyn bytes), orders the tiles (tile_order_kernel), then calls
+// launch(order, blocks, dyn); the order's scratch is freed in stream order.
+template <class K, class L>
+int launch_tracer(K kernel, const void* counts, int nt, int tile, int W, int k, int ch,
+                  int dyn, cudaStream_t stream, L launch) {
+  if (bad_trace_shape(tile, W, k, ch)) return (int)cudaErrorInvalidValue;
+  if (nt == 0) return (int)cudaSuccess;
+  const int order_dyn = (W + 1) * (int)sizeof(int);
+  cudaError_t e = allow_smem(kernel, dyn, (int)sizeof(TraceShared) + kWarps * 4);
+  if (e == cudaSuccess) e = allow_smem(tile_order_kernel, order_dyn, kOrderThreads / 8);
+  if (e != cudaSuccess) return (int)e;
+  int* order = nullptr;
+  if ((e = order_alloc(nt, stream, &order)) != cudaSuccess) return (int)e;
+  tile_order_kernel<<<1, kOrderThreads, order_dyn, stream>>>((const int*)counts, nt, W,
+                                                             order);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) {
+    launch(order, nt * (tile / kLanes), dyn);
+    e = cudaGetLastError();
+  }
+  const cudaError_t f = cudaFreeAsync(order, stream);
+  return (int)(e != cudaSuccess ? e : f);
 }
 
 }  // namespace
@@ -622,35 +828,33 @@ int pbrt_closest(const void* packed, const void* rays, const void* anyhit,
                  const void* covbits, void* t_out, void* slot_out,
                  void* bary_out, void* slot_tests, void* needed_tests, int nt,
                  int tile, int W, int nb32, int k, int ch, void* stream) {
-  if (bad_trace_shape(tile, W, k, ch)) return (int)cudaErrorInvalidValue;
-  const int smem = (ch * (k * kNF + 4) + kClosestPlanes * tile + tile) * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      closest_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  closest_kernel<<<nt, kTraceThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)packed, (const float*)rays, (const float*)anyhit,
-      (const int*)corder, (const float*)tnear, (const int*)counts,
-      (const int*)covbits, (float*)t_out, (int*)slot_out, (float*)bary_out,
-      (unsigned long long*)slot_tests, (unsigned long long*)needed_tests, nt, tile,
-      W, nb32, k, ch);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  // dynamic shared memory: the tile's cluster ids and entry t
+  return launch_tracer(closest_kernel, counts, nt, tile, W, k, ch, 2 * W * (int)sizeof(int), s,
+                       [&](const int* order, int blocks, int dyn) {
+    closest_kernel<<<blocks, kLanes, dyn, s>>>(
+        (const float*)packed, (const float*)rays, (const float*)anyhit,
+        (const int*)corder, (const float*)tnear, (const int*)counts,
+        (const int*)covbits, (float*)t_out, (int*)slot_out, (float*)bary_out,
+        (unsigned long long*)slot_tests, (unsigned long long*)needed_tests, order, nt,
+        tile, W, nb32, k);
+  });
 }
 
 int pbrt_occluded(const void* packed, const void* rays, const void* corder,
                   const void* counts, const void* covbits, void* occ_out,
                   void* slot_tests, void* needed_tests, int nt, int tile, int W,
                   int nb32, int k, int ch, void* stream) {
-  if (bad_trace_shape(tile, W, k, ch)) return (int)cudaErrorInvalidValue;
-  const int smem = (ch * (k * kNF + 4) + kAnyPlanes * tile + tile) * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      occluded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  occluded_kernel<<<nt, kTraceThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)packed, (const float*)rays, (const int*)corder,
-      (const int*)counts, (const int*)covbits, (unsigned char*)occ_out,
-      (unsigned long long*)slot_tests, (unsigned long long*)needed_tests, nt, tile,
-      W, nb32, k, ch);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  // dynamic shared memory: the tile's cluster ids
+  return launch_tracer(occluded_kernel, counts, nt, tile, W, k, ch, W * (int)sizeof(int), s,
+                       [&](const int* order, int blocks, int dyn) {
+    occluded_kernel<<<blocks, kLanes, dyn, s>>>(
+        (const float*)packed, (const float*)rays, (const int*)corder,
+        (const int*)counts, (const int*)covbits, (unsigned char*)occ_out,
+        (unsigned long long*)slot_tests, (unsigned long long*)needed_tests, order, nt,
+        tile, W, nb32, k);
+  });
 }
 
 int pbrt_compact_probe(const void* mask, const void* val, void* out, void* slot,

@@ -1,12 +1,11 @@
-"""Two probe kernels built on the tracers' device helpers, with their
+"""Two probe kernels of the TPU kernels' block structure, with their
 wrappers and plain PyTorch versions. Neither is on a render path.
 
 compact — replaces the probe `main` in debug_lc_prim2.py:89 (the rank-based
     lane compaction of the lane-compacted TPU kernels, which must return
     val·mask exactly). The CUDA kernel compacts a (1, tile) mask into a
-    list with `compact_lanes`, the helper the closest-hit and any-hit
-    kernels build each round's lane list with, gathers val into the
-    compacted domain and expands it back through the list. Returns out =
+    list with `compact_lanes` (rank-based, by ballots and a block scan),
+    gathers val into the compacted domain and expands it back through the list. Returns out =
     val·mask and slot = 1 where the mask is set, else -1. Bound: launch
     latency (one block, a few KB).
 
@@ -15,15 +14,16 @@ overhead — replaces `run` in profile_overhead.py:111 (per-grid-step overhead
     clusters in corder order, at the probe's shapes (NT = 1024 tiles of
     TILE = 256 lanes, CPAD = 1024, C = 900 clusters of K = 128 slots):
       empty          writes ray plane 0;
-      stage          stages each round's clusters through `stage_clusters`
-                     (the tracers' staging helper) and adds the first
-                     staged feature per round;
+      stage          stages each round's clusters into shared memory
+                     through `stage_clusters` and adds the first staged
+                     feature per round;
       stage+compute  adds per lane the minimum over the round's CH·K slots
                      of the dot of the slot's first 16 features with the
                      lane's 8 ray planes taken twice.
     Bound: operations for stage+compute (32 f32 ops per (lane, slot)),
-    bytes for the others. It measures the card's per-block cost of the
-    tracers' structure: `python -m pbrt_tpu_torch.kernels.probes` prints
+    bytes for the others. It measures the card's per-block cost of that
+    structure (one block per tile, features staged in shared memory),
+    which the tracers no longer use: `python -m pbrt_tpu_torch.kernels.probes` prints
     µs per tile for each kind and cluster count (needs a GPU).
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU

@@ -16,6 +16,7 @@ from . import bxdf
 MAT_MATTE = 0
 MAT_PLASTIC = 1
 PORTED_KINDS = (MAT_MATTE, MAT_PLASTIC)
+UNPORTED_CHANNELS = ("ks_tex", "kr_tex", "kt_tex", "roughness_tex", "sigma_tex", "bump_tex")
 
 
 @dataclass
@@ -34,15 +35,20 @@ class MaterialTable:
 
 def materials_from_numpy(arrs, device):
     """MaterialTable from numpy columns: kind, kd, ks, roughness, eta,
-    sigma, remap_roughness, kd_tex (as the JAX package's build_materials
-    lays them out)."""
+    sigma, remap_roughness, kd_tex and the texture ids of the channels
+    not ported (UNPORTED_CHANNELS, all -1), as the JAX package's
+    build_materials lays them out. A table that leaves out one of those
+    channels is refused: a texture on it would be dropped without a word."""
     kind = np.asarray(arrs["kind"], np.int64)
     bad = sorted(set(kind.tolist()) - set(PORTED_KINDS))
     if bad:
         raise NotImplementedError(f"material kinds {bad} are not ported yet")
     kd_tex = np.asarray(arrs["kd_tex"], np.int64)
-    for ch in ("ks_tex", "kr_tex", "kt_tex", "roughness_tex", "sigma_tex", "bump_tex"):
-        if ch in arrs and (np.asarray(arrs[ch]) >= 0).any():
+    for ch in UNPORTED_CHANNELS:
+        if ch not in arrs:
+            raise NotImplementedError(f"the material table does not state {ch}: texture "
+                                      "channels other than kd are not ported")
+        if (np.asarray(arrs[ch]) >= 0).any():
             raise NotImplementedError(f"texture channel {ch} is not ported yet")
     t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), device=device).to(dt)  # noqa: E731
     return MaterialTable(kind=t(kind, torch.int64), kd=t(arrs["kd"]), ks=t(arrs["ks"]),
@@ -71,7 +77,8 @@ def build_materials(rows, device):
         ks=col("ks", 0.0, (3,)), roughness=col("roughness", 0.0, (2,)),
         eta=col("eta", 1.5), sigma=col("sigma", 0.0),
         remap_roughness=[bool(r.get("remap_roughness", True)) for r in rows],
-        kd_tex=[r.get("kd_tex", -1) for r in rows]), device)
+        kd_tex=[r.get("kd_tex", -1) for r in rows],
+        **{ch: [r.get(ch, -1) for r in rows] for ch in UNPORTED_CHANNELS}), device)
 
 
 @dataclass

@@ -16,12 +16,11 @@ from pbrt_tpu_torch.kernels import probes
 TILE = 256
 
 
-def _soup_and_rays(seed):
+def _soup_and_rays(seed, n=3000):
     r = np.random.RandomState(seed)
     centers = r.rand(600, 3) * 10
     verts = (centers[:, None] + 0.5 * (r.rand(600, 3, 3) - 0.5)).reshape(-1, 3)
     idx = np.arange(len(verts)).reshape(-1, 3)
-    n = 3000
     o = r.rand(n, 3) * 10
     d = r.randn(n, 3)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
@@ -56,10 +55,44 @@ def test_kernels_equal_plain_versions(card, seed):
     for a, b in zip(tkern.closest(*args, slot_tests=kt, needed_tests=kn),
                     tkern.closest_plain(*args, slot_tests=pt, needed_tests=pn)):
         assert torch.equal(a, b)
-    assert int(kt) == int(pt) > 0
-    assert int(kn) == int(pn) and 0 < int(kn) < int(kt)
+    # the kernel runs exactly the slot tests the data needs
+    assert int(kt) == int(pt) == int(kn) == int(pn) > 0
     assert (tkern.coverage.launches, tkern.closest.launches) == \
         (launches[0] + 2, launches[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["closest", "occluded"])
+def test_tracers_over_more_tiles_than_the_order_block(card, kind):
+    """A launch over 1,030 tiles (more than the 1,024 threads of the block
+    that orders the tiles by count) equals launches over slices of at most
+    300 tiles, in every output and in both counters: a tile's results do
+    not depend on where the order puts it."""
+    verts, idx, o, d, t_min, t_max, flag = _soup_and_rays(25, n=1030 * TILE)
+    cs = tcl.build_clusters(verts, idx, "cuda")
+    _, rays, flag_s = tcl.prepare(cs, o, d, t_min, t_max, TILE, flag)
+    corder, tnear, counts, covbits = tcl.tile_cluster_order(cs, rays, TILE)
+    nt = rays.shape[1] // TILE
+    assert nt == 1030
+
+    def trace(a, b, tests, needed):
+        lanes = slice(a * TILE, b * TILE)
+        per_tile = [x[a:b].contiguous() for x in (corder, tnear, counts, covbits)]
+        r = rays[:, lanes].contiguous()
+        if kind == "closest":
+            out = tkern.closest(cs.packed, r, flag_s[lanes].contiguous(), *per_tile, TILE,
+                                slot_tests=tests, needed_tests=needed)
+            return [x.reshape(x.shape[0], -1) for x in out]
+        return [tkern.occluded(cs.packed, r, *per_tile, TILE, slot_tests=tests,
+                               needed_tests=needed)]
+
+    counters = [torch.zeros(1, dtype=torch.int64, device="cuda") for _ in range(4)]
+    whole = trace(0, nt, *counters[:2])
+    parts = [trace(a, min(a + 300, nt), *counters[2:]) for a in range(0, nt, 300)]
+    for w, *p in zip(whole, *parts):
+        assert torch.equal(w, torch.cat(p))
+    assert int(counters[0]) == int(counters[2]) > 0
+    assert int(counters[1]) == int(counters[3]) > 0
 
 
 @pytest.mark.cuda

@@ -157,8 +157,9 @@ def test_needed_tests_equal_a_per_lane_walk():
     lane over its tile's cluster positions in order: clusters its covbits
     name, K slots each, up to and including its first hit (slot tests
     evaluated one cluster at a time over all lanes, outside the kernel's
-    rounds and lane lists). The run count is larger: it also counts the
-    round's other clusters."""
+    rounds and lane lists). The run count is larger: it counts K slots
+    for every listed (lane, cluster) pair, while the needed count stops
+    at the lane's first hit."""
     verts, idx = _soup(600, 61, 2.0)
     cs = tcl.build_clusters(verts, idx, "cpu")
     o, d, t_min, t_dead = _rays(2 * TILE, seed=62, dead=0.2)

@@ -136,7 +136,8 @@ def _imports(path):
 
 
 def test_port_imports_no_jax_nor_the_jax_package():
-    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "chip_profile.py")]
+    files = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "chip_profile.py",
+                                             "chip_kernel_ab.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "pbrt_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 20

@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
-"""A/B timing of builds of the tracing kernels on the GPU, in one process.
+"""A/B timing of builds of the ray-tracing kernels on the GPU, in one process.
 
     python3 chip_kernel_ab.py LABEL=SOURCE ... [--reps N] [--res N]
 
 Each SOURCE is a cluster.cu (this repository's, or an unpacked earlier
 tree's) built with the port's nvcc flags, all builds started together.
-Every build's `pbrt_closest` and `pbrt_occluded` (the same C interface in
-each) then run on the bench wavefronts of chip_smoke.py at RES×RES (512
-by default): the primary rays and the fused bounce (closest hit), the
-direct-lighting shadow and the first AO wavefront (any hit). For each
-build and wavefront the script prints the slot tests run and needed (the
-kernels' counters), the lanes whose results differ from the first
-build's, the kernels' registers and spill bytes (nvcc -Xptxas -v), and
-the ms per launch by CUDA events: REPS launches after a warm-up, the
-builds timed in turns, forward then backward (A B C C B A), so a drift of
-the card's clock spreads over all of them. The last line is one JSON
-object with every number. Needs a GPU; prints the card's name and power
-limit.
+Every build's `pbrt_coverage`, `pbrt_closest` and `pbrt_occluded` (the
+same C interface in each) then run on the bench wavefronts of
+chip_smoke.py at RES×RES (512 by default): coverage on all four, closest
+hit on the primary rays and the fused bounce, any hit on the
+direct-lighting shadow and the first AO wavefront. For each build and
+wavefront the script prints the tests run and needed (the kernels'
+counters; coverage's where the build has `pbrt_coverage_counted`), what
+differs from the first build's results (the tracers' lanes; coverage's
+covbits words and tnear columns), the kernels' registers and spill bytes
+(nvcc -Xptxas -v), and the ms per launch by CUDA events: REPS launches
+after a warm-up, the builds timed in turns, forward then backward (A B C
+C B A), so a drift of the card's clock spreads over all of them. The
+last line is one JSON object with every number. Needs a GPU; prints the
+card's name and power limit.
 """
 import ctypes
 import json
@@ -39,6 +41,11 @@ def load(so):
     lib.pbrt_closest.argtypes = [p] * 12 + [i] * 6 + [p]
     lib.pbrt_occluded.restype = i
     lib.pbrt_occluded.argtypes = [p] * 8 + [i] * 6 + [p]
+    lib.pbrt_coverage.restype = i
+    lib.pbrt_coverage.argtypes = [p] * 5 + [i] * 4 + [p]
+    if hasattr(lib, "pbrt_coverage_counted"):
+        lib.pbrt_coverage_counted.restype = i
+        lib.pbrt_coverage_counted.argtypes = [p] * 7 + [i] * 4 + [p]
     return lib
 
 
@@ -80,8 +87,7 @@ def main():
         if proc.returncode:
             sys.exit(f"nvcc failed for {label}:\n{err}")
         libs[label] = load(so)
-        usage[label] = {k: v for k, v in kern.ptxas_usage(err).items()
-                        if k in ("closest_kernel", "occluded_kernel")}
+        usage[label] = kern.ptxas_usage(err)
         print(f"{label}: registers, spill store bytes {usage[label]}", flush=True)
     print(f"built {len(libs)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -105,9 +111,12 @@ def main():
         scene, cam, cfg, direct.make_li(cfg, "one"), pid, sid))
     sent_a = cs_.sent_wavefronts(clmod, lambda: driver.render_lanes(
         scene, cam, cfg, ao.make_li(cfg, True, 4), pid, sid))
-    shapes = [("primary", "closest", rays_p, None), ("fused_bounce", "closest", rays_b, flag_s)]
-    for tag, w in (("direct_shadow", sent_d[0]), ("ao", sent_a[0])):
-        shapes.append((tag, "occluded", clmod.prepare(cs, *w, tile)[1], None))
+    rays_d, rays_a = (clmod.prepare(cs, *w[0], tile)[1] for w in (sent_d, sent_a))
+    shapes = [(tag, "coverage", rays, None) for tag, rays in (
+        ("primary", rays_p), ("fused_bounce", rays_b), ("direct_shadow", rays_d),
+        ("ao", rays_a))]
+    shapes += [("primary", "closest", rays_p, None), ("fused_bounce", "closest", rays_b, flag_s),
+               ("direct_shadow", "occluded", rays_d, None), ("ao", "occluded", rays_a, None)]
 
     P = lambda x: ctypes.c_void_p(0 if x is None else x.data_ptr())   # noqa: E731
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
@@ -116,7 +125,21 @@ def main():
         nt = rays.shape[1] // tile
         corder, tnear, counts, covbits = clmod.tile_cluster_order(cs, rays, tile)
         W, nb32, k = corder.shape[1], covbits.shape[1], cs.packed.shape[2]
-        if kind == "closest":
+        if kind == "coverage":
+            cpad = cs.bounds.shape[1]
+            nlt = torch.tensor([-(-int((rays[7] > rays[6]).sum()) // tile)],
+                               dtype=torch.int32, device=dev)
+            outs = lambda: (torch.empty((nt, cpad), device=dev),   # noqa: E731
+                            torch.empty((nt, nb32, tile), dtype=torch.int32, device=dev))
+
+            def call(lib, out, st=None, nd=None):
+                if st is not None and hasattr(lib, "pbrt_coverage_counted"):
+                    return lib.pbrt_coverage_counted(P(rays), P(cs.bounds), P(nlt), P(out[0]),
+                                                     P(out[1]), P(st), P(nd), nt, tile, cpad,
+                                                     cs.n_clusters, stream)
+                return lib.pbrt_coverage(P(rays), P(cs.bounds), P(nlt), P(out[0]), P(out[1]),
+                                         nt, tile, cpad, cs.n_clusters, stream)
+        elif kind == "closest":
             outs = lambda: (torch.empty((nt, tile), device=dev),   # noqa: E731
                             torch.empty((nt, tile), dtype=torch.int32, device=dev),
                             torch.empty((nt, 2, tile), device=dev))
@@ -140,10 +163,16 @@ def main():
                 sys.exit(f"{label} {kind} launch failed")
             torch.cuda.synchronize()
             ref = ref or out
-            differ = int((out[-1 if kind == "occluded" else 1] !=
-                          ref[-1 if kind == "occluded" else 1]).sum())
-            row[label] = dict(slot_tests=int(st), needed_tests=int(nd), lanes_differ=differ,
-                              ms=[])
+            if kind == "coverage":
+                counted = hasattr(lib, "pbrt_coverage_counted")
+                row[label] = dict(tests_run=int(st) if counted else None,
+                                  tests_needed=int(nd) if counted else None,
+                                  covbit_words_differ=int((out[1] != ref[1]).sum()),
+                                  tnear_differ=int((out[0] != ref[0]).sum()), ms=[])
+            else:
+                i = -1 if kind == "occluded" else 1
+                row[label] = dict(slot_tests=int(st), needed_tests=int(nd),
+                                  lanes_differ=int((out[i] != ref[i]).sum()), ms=[])
         order = list(libs) + list(libs)[::-1]
         out = outs()
         for label in order:
@@ -158,10 +187,9 @@ def main():
             torch.cuda.synchronize()
             row[label]["ms"].append(a.elapsed_time(b) / reps)
         for label, r in row.items():
-            print(f"{tag:14s} {kind:8s} {label:12s} ms={r['ms']} slot_tests={r['slot_tests']} "
-                  f"needed_tests={r['needed_tests']} lanes_differ={r['lanes_differ']}",
-                  flush=True)
-        results[tag] = row
+            print(f"{tag:14s} {kind:8s} {label:12s} "
+                  + " ".join(f"{key}={v}" for key, v in r.items()), flush=True)
+        results[f"{kind}[{tag}]"] = row
     print(json.dumps({"card": smi, "reps": reps, "res": res, "builds": dict(args),
                       "usage": usage, "results": results}), flush=True)
 

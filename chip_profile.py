@@ -10,8 +10,8 @@ pbrt_tpu_torch: for each, one warm-up, three frames timed with the host
 clock around torch.cuda.synchronize(), then one frame under
 torch.profiler. Prints the frame time, the device-busy share (sum of GPU
 kernel time over the profiled frame's wall time), the time of the CUDA
-tracing kernels, the count of GPU kernel launches, and the top ops by
-device time and by count.
+tracing kernels (coverage's two passes each and together), the count of
+GPU kernel launches, and the top ops by device time and by count.
 Needs a GPU; prints the card's name and power limit.
 """
 import subprocess
@@ -79,7 +79,8 @@ def profile_frame(torch, driver, scene, cam, cfg, pid, sid, name, li):
     busy_ms = sum(e.device_time for e in dev_kernels) / 1e3
     ours = {}
     for e in dev_kernels:
-        for k in ("coverage_kernel", "closest_kernel", "occluded_kernel"):
+        for k in ("coverage_lanes_kernel", "coverage_columns_kernel", "closest_kernel",
+                  "occluded_kernel"):
             if k in e.name:
                 c = ours.setdefault(k, [0, 0.0])
                 c[0] += 1
@@ -89,6 +90,9 @@ def profile_frame(torch, driver, scene, cam, cfg, pid, sid, name, li):
           flush=True)
     for k, (n, ms) in ours.items():
         print(f"[{name}] {k}: launches={n} device_ms={ms:.3f}", flush=True)
+    cov = [v for k, v in ours.items() if k.startswith("coverage")]
+    print(f"[{name}] coverage (both passes): launches={cov[0][0] if cov else 0} "
+          f"device_ms={sum(ms for _, ms in cov):.3f}", flush=True)
     averages = prof.key_averages()
     print(averages.table(sort_by="self_device_time_total", row_limit=40), flush=True)
     print(averages.table(sort_by="count", row_limit=30), flush=True)

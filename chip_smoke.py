@@ -10,12 +10,14 @@ Phases, each printing one line with its elapsed seconds:
   4. each kernel against its plain PyTorch version on the card, on the
      bench scene's primary rays and on one fused bounce wavefront (about
      20% dead lanes, half shadow lanes), the plain version on at most 32
-     tiles: bit for bit in t, slot and barycentrics, with equal slot-test
-     counts; the closest-hit kernel runs exactly the slot tests the data
-     needs, at most half of what the earlier kernel ran
-     (PRIOR_SLOT_TESTS); kernel
-     times by CUDA events;
-  4b. the any-hit kernel against its plain version (exact occ, equal
+     tiles: bit for bit in tnear and covbits, t, slot and barycentrics,
+     with equal test counts; coverage runs its tests the data needs
+     (word-box tests, then the columns of the words a lane enters), at
+     most half of testing every pair; the closest-hit kernel runs exactly
+     the slot tests the data needs, at most half of what the earlier
+     kernel ran (PRIOR_SLOT_TESTS); kernel times by CUDA events;
+  4b. the coverage and any-hit kernels against their plain versions
+     (coverage bit for bit with equal test counts; exact occ, equal
      slot-test counts, at most half of the earlier run count) on the shadow
      wavefront that direct.li sends and on the first occlusion wavefront
      that ao.li sends, both recorded from a 512×512 frame;
@@ -30,9 +32,10 @@ Phases, each printing one line with its elapsed seconds:
      timed frames each, with the launch counts per frame;
   7. the probe kernels (kernels/probes.py): the compaction probe at tiles
      256 and 1,024 and the overhead probe, each against its plain version.
-Then one JSON line with each kernel's numbers (with the earlier tracers'
-times and slot-test counts beside theirs, and every kernel's
-registers and spill bytes from nvcc -Xptxas -v), the nvidia-smi line, and
+Then one JSON line with each kernel's numbers (coverage's for each of the
+four wavefronts, with the bound of the tests needed and that of testing
+every pair; the tracers' slot-test counts; every kernel's registers and
+spill bytes from nvcc -Xptxas -v), the nvidia-smi line, and
 the last line {"ok": true, "device": {...}}. Any failed check exits
 non-zero before that line.
 """
@@ -94,35 +97,54 @@ def sub_rays(rays, sel, tile):
 
 
 def check_coverage(kern, cs, rays, tile, tag):
-    """Kernel vs plain coverage on a tile subset; returns numbers."""
+    """Kernel vs plain coverage on a tile subset, with equal test counts;
+    the kernel's run count on the whole wavefront against the flat count
+    (every lane of a live tile against every column); returns numbers."""
     import torch
     nt = rays.shape[1] // tile
     n_live = int((rays[7] > rays[6]).sum())
     nlt = (n_live + tile - 1) // tile
     nlt_t = torch.tensor([nlt], dtype=torch.int32, device=rays.device)
-    tnear, covbits = kern.coverage(rays, cs.bounds, nlt_t, cs.n_clusters, tile)
+    run, needed, krun, kneeded, prun, pneeded = (
+        torch.zeros(1, dtype=torch.int64, device=rays.device) for _ in range(6))
+    tnear, covbits = kern.coverage(rays, cs.bounds, nlt_t, cs.n_clusters, tile,
+                                   tests_run=run, tests_needed=needed)
     sel, n_sel_live = pick_tiles(nt, nlt)
     rs = sub_rays(rays, sel, tile)
     nls = torch.tensor([n_sel_live], dtype=torch.int32, device=rays.device)
-    tp, cp = kern.coverage_plain(rs, cs.bounds, nls, cs.n_clusters, tile)
+    tp, cp = kern.coverage_plain(rs, cs.bounds, nls, cs.n_clusters, tile,
+                                 tests_run=prun, tests_needed=pneeded)
+    kern.coverage(rs, cs.bounds, nls, cs.n_clusters, tile, tests_run=krun,
+                  tests_needed=kneeded)
     ti = torch.as_tensor(sel, device=rays.device)
     bit_mismatch = int(torch.bitwise_xor(covbits[ti], cp).ne(0).sum())
     tn_k, tn_p = tnear[ti], tp
     tn_mismatch = int((tn_k != tn_p).sum())
     fin = torch.isfinite(tn_p)
     err = float((tn_k[fin] - tn_p[fin]).abs().max()) if bool(fin.any()) else 0.0
+    cpad = cs.bounds.shape[1]
+    flat = nlt * tile * cpad
     log(f"coverage[{tag}]", tiles=nt, live_tiles=nlt, compared_tiles=len(sel),
-        covbit_word_mismatches=bit_mismatch, tnear_mismatches=tn_mismatch)
-    if bit_mismatch or tn_mismatch:
+        covbit_word_mismatches=bit_mismatch, tnear_mismatches=tn_mismatch,
+        tests_run_subset_kernel=int(krun), tests_run_subset_plain=int(prun),
+        tests_needed_subset_kernel=int(kneeded), tests_needed_subset_plain=int(pneeded),
+        tests_run=int(run), tests_needed=int(needed), flat_tests=flat)
+    if (bit_mismatch or tn_mismatch or int(krun) != int(prun)
+            or int(kneeded) != int(pneeded) or int(run) != int(needed)):
         fail(f"coverage[{tag}]: kernel and plain version disagree")
+    if 2 * int(run) > flat:
+        fail(f"coverage[{tag}]: runs {int(run)} slab tests, more than half of the "
+             f"{flat} of testing every pair")
     ms = cuda_ms(lambda: kern.coverage(rays, cs.bounds, nlt_t, cs.n_clusters, tile), 20)
     kms = cuda_ms(lambda: kern.coverage(rs, cs.bounds, nls, cs.n_clusters, tile), 20)
     pms = cuda_ms(lambda: kern.coverage_plain(rs, cs.bounds, nls, cs.n_clusters, tile), 3)
-    cpad = cs.bounds.shape[1]
-    ops = nlt * tile * cpad * 28          # 4 mul/add + 5 min/max per axis, compare
+    # 4 mul/add + 5 min/max per axis, compare: 28 a slab test; the bound
+    # counts the tests the data needs, the flat bound every pair
     nbytes = rays.numel() * 4 + cs.bounds.numel() * 4 + nt * cpad * 4 + covbits.numel() * 4
     return dict(ms=ms, subset_kernel_ms=kms, plain_ms=pms, plain_tiles=len(sel),
-                ops=ops, bytes=nbytes, tiles=nt, live_tiles=nlt, max_abs_err=err)
+                ops=int(needed) * 28, flat_ops=flat * 28, bytes=nbytes, tiles=nt,
+                live_tiles=nlt, tests_run=int(run), tests_needed=int(needed),
+                flat_tests=flat, max_abs_err=err)
 
 
 def check_closest(kern, clmod, cs, rays, flag, tile, tag):
@@ -410,6 +432,9 @@ def main():
         scene, cam, cfg, ao.make_li(cfg, True, 4), pid, sid))
     if (len(sent_d), len(sent_a)) != (1, 4):
         fail(f"any-hit queries sent: direct {len(sent_d)}, AO {len(sent_a)}; expected 1, 4")
+    cov_d = check_coverage(kern, cs, clmod.prepare(cs, *sent_d[0], tile)[1], tile,
+                           "direct_shadow")
+    cov_a = check_coverage(kern, cs, clmod.prepare(cs, *sent_a[0], tile)[1], tile, "ao")
     oc_d = check_occluded(kern, clmod, cs, *sent_d[0], tile, "direct_shadow")
     oc_a = check_occluded(kern, clmod, cs, *sent_a[0], tile, "ao")
     torch.cuda.synchronize()
@@ -501,15 +526,37 @@ def main():
                     **extra)
 
     ptxas.join()
-    if "closest_kernel" not in usage or "occluded_kernel" not in usage:
+    if not {"coverage_lanes_kernel", "coverage_columns_kernel", "closest_kernel",
+            "occluded_kernel"} <= set(usage):
         fail(f"nvcc -Xptxas -v gave no register counts: {usage}")
 
-    def resources(kname):
-        regs, spill = usage[kname]
-        return dict(registers=regs, spill_store_bytes=spill)
+    def resources(*knames):
+        """Registers (the most of the kernels') and spill-store bytes (their
+        sum), each kernel's beside them where there are several."""
+        by = {k: usage[k] for k in knames}
+        out = dict(registers=max(r for r, _ in by.values()),
+                   spill_store_bytes=sum(b for _, b in by.values()))
+        if len(knames) > 1:
+            out["registers_by_kernel"] = {k: r for k, (r, _) in by.items()}
+            out["spill_store_bytes_by_kernel"] = {k: b for k, (_, b) in by.items()}
+        return out
 
-    rows = [row("coverage", "pbrt_tpu/kernels/cluster_pallas.py:303", cov_p, cov_b,
-                shape="fused_bounce", primary_ms=cov_p["ms"], **resources("coverage_kernel")),
+    covs = {"primary": cov_p, "fused_bounce": cov_b, "direct_shadow": cov_d, "ao": cov_a}
+    cov_row = row("coverage", "pbrt_tpu/kernels/cluster_pallas.py:303", cov_p, cov_b,
+                  shape="fused_bounce",
+                  ms_by_wavefront={k: c["ms"] for k, c in covs.items()},
+                  bound_ms_by_wavefront={k: bound(c["ops"], c["bytes"])[0]
+                                         for k, c in covs.items()},
+                  bound_by_by_wavefront={k: bound(c["ops"], c["bytes"])[1]
+                                         for k, c in covs.items()},
+                  flat_bound_ms_by_wavefront={k: bound(c["flat_ops"], c["bytes"])[0]
+                                              for k, c in covs.items()},
+                  tests_run_by_wavefront={k: c["tests_run"] for k, c in covs.items()},
+                  tests_needed_by_wavefront={k: c["tests_needed"] for k, c in covs.items()},
+                  flat_tests_by_wavefront={k: c["flat_tests"] for k, c in covs.items()},
+                  **resources("coverage_lanes_kernel", "coverage_columns_kernel"))
+    cov_row["max_abs_err"] = max(c["max_abs_err"] for c in covs.values())
+    rows = [cov_row,
             row("closest", "pbrt_tpu/kernels/cluster_pallas.py:876", cl_p, cl_b,
                 shape="fused_bounce", primary_ms=cl_p["ms"],
                 primary_bound_ms=bound(cl_p["ops"], cl_p["bytes"])[0],

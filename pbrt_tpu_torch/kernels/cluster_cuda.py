@@ -4,12 +4,24 @@ plain PyTorch versions.
 coverage — replaces `coverage_tiles` (pbrt_tpu/kernels/cluster_pallas.py:303,
     kernel `_make_coverage_kernel`). The slab test of every lane against
     every cluster AABB; outputs the per-tile minimum entry t (nt, CPAD)
-    and per-lane coverage bits (nt, CPAD/32, TILE). Bound on the card:
-    operations — about 15 float32 ops per (lane, cluster) pair against
-    the 67 TFLOP/s non-tensor-core f32 rate; the bytes (rays in, covbits
-    out) are a few tens of MB. Design: one block per (tile, 128 clusters),
-    bounds in shared memory, warp-shuffle min for tnear, covbits ORed in
-    registers.
+    and per-lane coverage bits (nt, CPAD/32, TILE). Design: a two-level
+    walk. Each 32-column word has a box that holds its columns' boxes
+    (`_word_boxes`); the slab test is monotone in the box faces, so a lane
+    that misses a word's box misses all of its columns. A lane pass
+    (blocks of 256 lanes) tests every lane against the word boxes, a
+    ballot per word giving its lane mask: where no lane of a 32-lane
+    chunk enters a word's box it stores the chunk's words as zeros, and
+    it lists the other (tile, word, chunk) units. A column pass spreads
+    the listed units over the whole launch: a warp walks a dense unit
+    lane-parallel (a thread per lane, against the 32 columns in turn) and
+    a sparse one column-parallel (a thread per column, a ballot per
+    entering lane); tnear is merged by a float atomic min. Bound on the
+    card: operations or bytes — 28 float32 ops per test, times the tests
+    this run's data needs: TILE·CPAD/32 box tests per live tile plus 32
+    per (lane, word) whose box the lane enters (`tests_needed`, equal to
+    `tests_run`), 26.1M tests on the bench's primary wavefront where
+    testing every pair takes 169.1M; the bytes are the rays in and the
+    covbits out (most of them zeros).
 
 closest — replaces `traverse_tiles` (cluster_pallas.py:876, default kernel
     `_make_closest_kernel_lc`). Closest hit per lane over the tile's
@@ -82,8 +94,8 @@ CH = 8                 # clusters per traversal round
 BLOCK = 128            # lanes per closest-hit and any-hit block (kernels/csrc/cluster.cu)
 NF = 24                # features per triangle slot (kernels/csrc/cluster.cu)
 SLOT_MASK = 2047       # low mantissa bits of t that carry the slot
-COV_CLUSTERS = 128     # clusters per coverage block: CPAD is a multiple
-THREADS = 256          # coverage threads per block; TILE a multiple, <= 4x
+COV_CLUSTERS = 128     # CPAD is a multiple (geom/cluster.build_clusters)
+THREADS = 256          # TILE is a multiple of it, at most 4x
 _BIG = f32(3e37)
 _INT_MAX = 0x7FFFFFFF
 
@@ -133,8 +145,8 @@ def load_library():
         lib = ctypes.CDLL(so)
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.pbrt_coverage.restype = i
-        lib.pbrt_coverage.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.pbrt_coverage_counted.restype = i
+        lib.pbrt_coverage_counted.argtypes = [p] * 7 + [i] * 4 + [p]
         lib.pbrt_closest.restype = i
         lib.pbrt_closest.argtypes = [p] * 12 + [i] * 6 + [p]
         lib.pbrt_occluded.restype = i
@@ -180,9 +192,35 @@ def _check_tile(tile):
 
 # ------------------------------------------------------------- coverage
 
-def coverage_plain(rays, bounds, n_live_tiles, n_clusters, tile, chunk=8):
-    """Plain PyTorch coverage, `chunk` tiles at a time (None: all at once).
-    Same arguments and results as `coverage`."""
+def _word_boxes(bounds):
+    """(6, CPAD/32) f32: each 32-column word's box, per axis the least of
+    min(lo, hi) and the greatest of max(lo, hi) over its columns, pad
+    columns as `bounds` holds them. Every column's box lies inside it."""
+    b = bounds.view(3, 2, -1, 32)
+    lo = torch.minimum(b[:, 0], b[:, 1]).amin(-1)
+    hi = torch.maximum(b[:, 0], b[:, 1]).amax(-1)
+    return torch.stack([lo, hi], 1).reshape(6, -1)
+
+
+def _slab(boxes, inv, noi, tn, tf):
+    """The kernel's slab test of rays (their inv, noi per axis, tmin and
+    tmax, each (..., 1)) against boxes (6, m), in its order of operations.
+    Returns (tn, entered), each (..., m)."""
+    for ax in range(3):
+        lo = boxes[2 * ax] * inv[ax] + noi[ax]
+        hi = boxes[2 * ax + 1] * inv[ax] + noi[ax]
+        tn = torch.maximum(tn, torch.minimum(lo, hi))
+        tf = torch.minimum(tf, torch.maximum(lo, hi) * f32(1.0001))
+    return tn, tn <= tf
+
+
+def coverage_plain(rays, bounds, n_live_tiles, n_clusters, tile, chunk=8,
+                   tests_run=None, tests_needed=None):
+    """Plain PyTorch coverage, `chunk` tiles at a time (None: all at once):
+    every lane against every column. Same arguments and results as
+    `coverage`. Given the counters, it adds the kernel's counts, from a
+    test of every live tile's lanes against the word boxes with the same
+    arithmetic."""
     nt = rays.shape[1] // tile
     cpad = bounds.shape[1]
     dev = rays.device
@@ -191,6 +229,9 @@ def coverage_plain(rays, bounds, n_live_tiles, n_clusters, tile, chunk=8):
     live = min(int(n_live_tiles.reshape(-1)[0]), nt)
     R = rays.view(8, nt, tile)
     shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    counting = tests_run is not None or tests_needed is not None
+    boxes = _word_boxes(bounds) if counting else None
+    entries = 0
     step = live if chunk is None else chunk
     for s in range(0, live, max(step, 1)):
         e = min(s + step, live)
@@ -202,31 +243,37 @@ def coverage_plain(rays, bounds, n_live_tiles, n_clusters, tile, chunk=8):
                              torch.where(d < 0.0, f32(-1e-12), f32(1e-12)), d)
             inv.append(1.0 / dd)
             noi.append((-o) * inv[-1])
-        tn = torch.clamp(R[6, s:e, :, None], -_BIG, _BIG)
-        tf = torch.clamp(R[7, s:e, :, None], -_BIG, _BIG)
-        for ax in range(3):
-            lo = bounds[2 * ax] * inv[ax] + noi[ax]
-            hi = bounds[2 * ax + 1] * inv[ax] + noi[ax]
-            tn = torch.maximum(tn, torch.minimum(lo, hi))
-            tf = torch.minimum(tf, torch.maximum(lo, hi) * f32(1.0001))
-        hit = tn <= tf                                      # (n, tile, cpad)
+        tmin = torch.clamp(R[6, s:e, :, None], -_BIG, _BIG)
+        tmax = torch.clamp(R[7, s:e, :, None], -_BIG, _BIG)
+        tn, hit = _slab(bounds, inv, noi, tmin, tmax)          # (n, tile, cpad)
         tnear[s:e] = torch.where(hit, tn, INF).amin(1)
         words = (hit.view(e - s, tile, cpad // 32, 32).to(torch.int64)
                  << shifts).sum(-1)
         words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
         covbits[s:e] = words.to(torch.int32).permute(0, 2, 1)
+        if counting:
+            entries += int(_slab(boxes, inv, noi, tmin, tmax)[1].sum())
     tnear[:, n_clusters:] = INF
+    if counting:
+        n = live * tile * (cpad // 32) + 32 * entries
+        for c in (tests_run, tests_needed):
+            if c is not None:
+                c += n
     return tnear, covbits
 
 
-def coverage(rays, bounds, n_live_tiles, n_clusters, tile):
+def coverage(rays, bounds, n_live_tiles, n_clusters, tile, tests_run=None,
+             tests_needed=None):
     """Per-tile cluster coverage.
 
     rays (8, nt·tile) f32 sorted planes ox oy oz dx dy dz tmin tmax;
     bounds (6, CPAD) f32; n_live_tiles (1,) i32 — tiles at or past it
     write INF and 0. Returns tnear (nt, CPAD) f32 (INF where no lane
     enters, and in columns >= n_clusters) and covbits (nt, CPAD/32, tile)
-    i32."""
+    i32. `tests_run` (1,) int64, when given, accumulates the slab tests
+    run; `tests_needed` the tests the two-level walk needs: CPAD/32 word
+    box tests for every lane of a live tile, plus 32 for every (lane,
+    word) whose box the lane enters."""
     dev = rays.device
     _check_tile(tile)
     if rays.dim() != 2 or rays.shape[0] != 8 or rays.shape[1] % tile:
@@ -239,14 +286,19 @@ def coverage(rays, bounds, n_live_tiles, n_clusters, tile):
     _need(rays, "rays", torch.float32, (8, nt * tile), dev)
     _need(bounds, "bounds", torch.float32, (6, cpad), dev)
     _need(n_live_tiles, "n_live_tiles", torch.int32, (1,), dev)
+    for a, name in ((tests_run, "tests_run"), (tests_needed, "tests_needed")):
+        if a is not None:
+            _need(a, name, torch.int64, (1,), dev)
     if dev.type != "cuda":
-        return coverage_plain(rays, bounds, n_live_tiles, n_clusters, tile)
+        return coverage_plain(rays, bounds, n_live_tiles, n_clusters, tile,
+                              tests_run=tests_run, tests_needed=tests_needed)
     lib = load_library()
     tnear = torch.empty((nt, cpad), dtype=torch.float32, device=dev)
     covbits = torch.empty((nt, cpad // 32, tile), dtype=torch.int32, device=dev)
-    err = lib.pbrt_coverage(_ptr(rays), _ptr(bounds), _ptr(n_live_tiles),
-                            _ptr(tnear), _ptr(covbits), nt, tile, cpad,
-                            n_clusters, _stream(rays))
+    err = lib.pbrt_coverage_counted(_ptr(rays), _ptr(bounds), _ptr(n_live_tiles),
+                                    _ptr(tnear), _ptr(covbits), _opt_ptr(tests_run),
+                                    _opt_ptr(tests_needed), nt, tile, cpad, n_clusters,
+                                    _stream(rays))
     if err:
         raise RuntimeError(f"coverage kernel launch failed: cudaError {err}")
     coverage.launches += 1

@@ -28,10 +28,7 @@
 
 namespace {
 
-constexpr int kCovClusters = 128;   // clusters per coverage block
-constexpr int kThreads = 256;       // threads per coverage block
 constexpr int kTraceThreads = 512;  // threads per compaction-probe block
-constexpr int kMaxLanes = 4;        // lanes per thread: tile <= 1024
 constexpr int kNF = 24;             // features per triangle slot
 constexpr int kMaxCH = 16;          // clusters per overhead-probe round
 constexpr int kSlotMask = 2047;     // low mantissa bits of t carry the slot
@@ -44,88 +41,296 @@ __device__ __forceinline__ float clampf(float x, float lo, float hi) {
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 
+// Adds a block's counts to a global counter: a warp sum, then one atomic
+// per warp.
+__device__ __forceinline__ void add_count(unsigned long long* __restrict__ out,
+                                          unsigned long long n) {
+  for (int off = 16; off; off >>= 1) n += __shfl_xor_sync(0xffffffffu, n, off);
+  if ((threadIdx.x & 31) == 0 && n) atomicAdd(out, n);
+}
+
 // ------------------------------------------------------------- coverage
-// One block per (tile, 128 clusters); each thread owns up to 4 lanes.
-// Slab test t = b·inv + (−o·inv), far t ×1.0001, hit iff tn <= tf.
-// tnear is the min entry t over the tile's lanes (warp shuffle, then
-// shared memory); covbits words are ORed per lane over 32 clusters.
-__global__ void __launch_bounds__(kThreads) coverage_kernel(
+// Replaces coverage_tiles (pbrt_tpu/kernels/cluster_pallas.py:303, body
+// _make_coverage_kernel). The function: the slab test of every lane of a
+// tile against every column (cluster AABB) of `bounds`, pad columns
+// included; covbits bit cc of word w is "lane enters column 32·w + cc",
+// tnear the least entry t over the tile's lanes (INF in pad columns).
+//
+// Slab test (slab() below, the same ops in the same order for a column
+// and for a word box): per axis lo = b_lo·inv + noi, hi = b_hi·inv + noi
+// with noi = −o·inv, tn = max(tn, min(lo, hi)), tf = min(tf,
+// max(lo, hi)·1.0001), from tn = tmin and tf = tmax (both clamped to
+// ±3e37); the lane enters iff tn <= tf.
+//
+// Design: a two-level walk. Word box G_w = per axis the least of the
+// min(lo, hi) and the greatest of the max(lo, hi) over the word's 32
+// columns (pad columns as `bounds` holds them). Why skipping is exact:
+// b·inv and (·) + noi round to nearest, so each is monotone in b
+// (non-decreasing for inv > 0, non-increasing for inv < 0), and so are
+// min, max, the ×1.0001 and the clamps; inv is finite (the 1e-12 clamp of
+// d), and with finite products no NaN arises. So every column c of word
+// w, whose faces lie inside G_w's, has tn(G_w) <= tn(c) and tf(G_w) >=
+// tf(c): a lane that enters c enters G_w. A lane that misses G_w has word
+// w = 0 and adds nothing to the tnear of w's columns.
+// Two launches:
+//   1. coverage_lanes_kernel, one block per 256 lanes of a tile: the word
+//      boxes (a warp reduction per word, into shared memory); each thread
+//      takes a lane, writes the ray's 8 terms (inv, tmin | noi, tmax) to
+//      scratch and tests the word boxes, a ballot per (warp, word) giving
+//      the word's mask of those 32 lanes. An empty mask's 32 covbits words
+//      are stored as zeros at once (128 contiguous bytes); the others go
+//      into a list of units (tile, word, 32-lane chunk, mask), appended a
+//      block at a time. tnear starts at INF.
+//   2. coverage_columns_kernel: the launch's warps take the listed units
+//      in turn, so the work spreads over the card whatever the tiles'
+//      loads (the tiles differ several fold in the words their lanes
+//      enter; with one block a tile, the heaviest tiles set a launch's
+//      time) and no warp walks an empty unit. A
+//      dense unit (more than kSparseLanes lanes) is walked lane-parallel:
+//      the warp stages the word's 32 column boxes in shared memory, and a
+//      thread whose lane is in the mask holds its ray in registers and
+//      tests it against the 32 columns in turn (each box a shared-memory
+//      broadcast, 32 independent tests for the scheduler to overlap),
+//      setting its covbits word's bits; a hit's entry t goes into the
+//      column's int key in shared memory by atomicMin. A sparse unit is
+//      walked column-parallel: a thread holds its column's box, the warp
+//      stages the chunk's rays in shared memory and tests the mask's
+//      lanes one at a time (a ray broadcast each), the ballot of the 32
+//      results being that lane's covbits word, and each thread keeps its
+//      column's least key. Either way the warp then stores the 32 words at
+//      once (128 contiguous bytes) and merges each column's key into tnear
+//      by a float atomic min, so tnear does not depend on the order of the
+//      units.
+// Work: tile·words box tests and 32 column tests per (lane, word) entry,
+// not tile·CPAD column tests. Bound on the card: the float32 operations
+// of those tests (28 a test) against the 67 TFLOP/s rate, or the bytes
+// (rays in, covbits and tnear out), whichever is larger. What holds it
+// in practice: the issue of about 32 (lane-parallel) to 45 (ballot walk)
+// instructions a test, of which 28 are the test's float operations, and,
+// on wavefronts with many dead tiles, the lane pass's stores of zero
+// covbits words. `tests_run` counts the tests the two passes make,
+// `tests_needed` the same from the lane pass's masks: they are equal.
+constexpr int kLaneThreads = 256;    // threads (= lanes) per lane-pass block
+constexpr int kLaneWarps = kLaneThreads / 32;
+constexpr int kWordGroup = 32;       // words a lane-pass block lists between flushes
+constexpr int kColThreads = 256;     // threads per column-pass block
+constexpr int kColWarps = kColThreads / 32;
+constexpr int kColBlocksPerSM = 6;   // column-pass blocks an SM (<= 40 registers)
+constexpr int kSparseLanes = 20;     // a unit with at most these lanes is walked column-parallel
+constexpr int kInfKey = 0x7F800000;  // the key of +INF
+
+// The slab test: tn of the box (lx hx ly hy lz hz) for the ray whose
+// terms are a = (inv, tmin) and b = (noi, tmax); *hit = the lane enters.
+__device__ __forceinline__ float slab(float lx, float hx, float ly, float hy, float lz,
+                                      float hz, float4 a, float4 b, bool* hit) {
+  float tn = a.w, tf = b.w, lo, hi;
+  lo = add(mul(lx, a.x), b.x);
+  hi = add(mul(hx, a.x), b.x);
+  tn = fmaxf(tn, fminf(lo, hi));
+  tf = fminf(tf, mul(fmaxf(lo, hi), 1.0001f));
+  lo = add(mul(ly, a.y), b.y);
+  hi = add(mul(hy, a.y), b.y);
+  tn = fmaxf(tn, fminf(lo, hi));
+  tf = fminf(tf, mul(fmaxf(lo, hi), 1.0001f));
+  lo = add(mul(lz, a.z), b.z);
+  hi = add(mul(hz, a.z), b.z);
+  tn = fmaxf(tn, fminf(lo, hi));
+  tf = fminf(tf, mul(fmaxf(lo, hi), 1.0001f));
+  *hit = tn <= tf;
+  return tn;
+}
+
+// A float as an int whose order is the float's (−0 below +0).
+__device__ __forceinline__ int min_key(float x) {
+  const int b = __float_as_int(x);
+  return b >= 0 ? b : b ^ 0x7FFFFFFF;
+}
+
+// *addr = min(*addr, the float of key k), in the keys' order, for a float
+// in memory: a sign-clear value by an int min, a sign-set one by an
+// unsigned max of the bits.
+__device__ __forceinline__ void atomic_min_key(float* addr, int k) {
+  if (k >= 0)
+    atomicMin(reinterpret_cast<int*>(addr), k);
+  else
+    atomicMax(reinterpret_cast<unsigned*>(addr), (unsigned)(k ^ 0x7FFFFFFF));
+}
+
+// A listed unit: the chunk's mask of lanes that enter the word box, and
+// (t·nw + w) << 5 | j for tile t, word w, 32-lane chunk j.
+struct CovUnit {
+  unsigned mask, where;
+};
+
+// Pass 1. rays (8, nt·tile) → terms (nt·tile, 2) float4, the zero covbits
+// words, units[0, *n_units) (n_units zero before the launch), tnear (nt,
+// cpad) = INF. Block (t, p) takes lanes p·kLaneThreads onwards of tile t,
+// one a thread. Dynamic shared memory: the word boxes (nw × 2 float4).
+__global__ void __launch_bounds__(kLaneThreads) coverage_lanes_kernel(
     const float* __restrict__ rays, const float* __restrict__ bounds,
-    const int* __restrict__ n_live_tiles, float* __restrict__ tnear,
-    int* __restrict__ covbits, int nt, int tile, int cpad, int n_clusters) {
-  const int t = blockIdx.y;
-  const int c0 = blockIdx.x * kCovClusters;
-  const int nwords = kCovClusters / 32;
-  int* cb = covbits + ((size_t)t * (cpad / 32) + c0 / 32) * tile;
-  if (t >= n_live_tiles[0]) {   // dead lanes sort to the suffix
-    for (int i = threadIdx.x; i < kCovClusters; i += blockDim.x)
-      tnear[(size_t)t * cpad + c0 + i] = CUDART_INF_F;
-    for (int i = threadIdx.x; i < nwords * tile; i += blockDim.x) cb[i] = 0;
+    const int* __restrict__ n_live_tiles, float4* __restrict__ terms,
+    CovUnit* __restrict__ units, int* __restrict__ n_units, float* __restrict__ tnear,
+    int* __restrict__ covbits, unsigned long long* __restrict__ tests_run,
+    unsigned long long* __restrict__ tests_needed, int nt, int tile, int cpad) {
+  extern __shared__ float4 s_box[];   // word w: [2w] lx hx ly hy, [2w+1] lz hz
+  __shared__ CovUnit s_units[kLaneWarps * kWordGroup];
+  __shared__ int s_count, s_base;
+  const int parts = (tile + kLaneThreads - 1) / kLaneThreads;
+  const int t = blockIdx.x / parts;
+  const int i = (blockIdx.x - t * parts) * kLaneThreads + threadIdx.x;   // the lane
+  const bool lane_ok = i < tile;   // whole warps: tile is a multiple of 32
+  const int nw = cpad / 32;
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  int* cb = covbits + (size_t)t * nw * tile + i;   // word w at w·tile
+  if (blockIdx.x == t * parts)
+    for (int c = threadIdx.x; c < cpad; c += kLaneThreads)
+      tnear[(size_t)t * cpad + c] = CUDART_INF_F;
+  if (t >= n_live_tiles[0]) {   // dead lanes sort to the suffix: no word entered
+    if (lane_ok)
+      for (int w = 0; w < nw; ++w) cb[(size_t)w * tile] = 0;
     return;
   }
-  __shared__ float sb[6][kCovClusters];
-  __shared__ float smin[kThreads / 32][kCovClusters];
-  for (int i = threadIdx.x; i < 6 * kCovClusters; i += blockDim.x)
-    sb[i / kCovClusters][i % kCovClusters] =
-        bounds[(size_t)(i / kCovClusters) * cpad + c0 + i % kCovClusters];
-  __syncthreads();
-
-  const size_t nl = (size_t)nt * tile;
-  const int lpt = tile / kThreads;
-  float inv[kMaxLanes][3], noi[kMaxLanes][3], tmn[kMaxLanes], tmx[kMaxLanes];
+  for (int w = warp; w < nw; w += kLaneWarps) {
+    const int c = w * 32 + wl;
+    float v[6];
 #pragma unroll
-  for (int l = 0; l < kMaxLanes; ++l) {
-    if (l < lpt) {
-      const size_t g = (size_t)t * tile + threadIdx.x + l * kThreads;
+    for (int ax = 0; ax < 3; ++ax) {
+      const float lo = bounds[(size_t)(2 * ax) * cpad + c];
+      const float hi = bounds[(size_t)(2 * ax + 1) * cpad + c];
+      v[2 * ax] = fminf(lo, hi);
+      v[2 * ax + 1] = fmaxf(lo, hi);
+    }
+    for (int off = 16; off; off >>= 1) {
 #pragma unroll
       for (int ax = 0; ax < 3; ++ax) {
-        const float o = rays[ax * nl + g];
-        const float d = rays[(3 + ax) * nl + g];
-        const float dd = fabsf(d) < 1e-12f ? (d < 0.0f ? -1e-12f : 1e-12f) : d;
-        inv[l][ax] = 1.0f / dd;
-        noi[l][ax] = mul(-o, inv[l][ax]);
+        v[2 * ax] = fminf(v[2 * ax], __shfl_xor_sync(0xffffffffu, v[2 * ax], off));
+        v[2 * ax + 1] = fmaxf(v[2 * ax + 1], __shfl_xor_sync(0xffffffffu, v[2 * ax + 1], off));
       }
-      tmn[l] = clampf(rays[6 * nl + g], -kBig, kBig);
-      tmx[l] = clampf(rays[7 * nl + g], -kBig, kBig);
+    }
+    if (wl == 0) {
+      s_box[2 * w] = make_float4(v[0], v[1], v[2], v[3]);
+      s_box[2 * w + 1] = make_float4(v[4], v[5], 0.0f, 0.0f);
     }
   }
+  if (threadIdx.x == 0) s_count = 0;
+  float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f), b = a;
+  if (lane_ok) {
+    const size_t nl = (size_t)nt * tile, g = (size_t)t * tile + i;
+    float inv[3], noi[3];
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      const float o = rays[ax * nl + g];
+      const float d = rays[(3 + ax) * nl + g];
+      const float dd = fabsf(d) < 1e-12f ? (d < 0.0f ? -1e-12f : 1e-12f) : d;
+      inv[ax] = 1.0f / dd;
+      noi[ax] = mul(-o, inv[ax]);
+    }
+    a = make_float4(inv[0], inv[1], inv[2], clampf(rays[6 * nl + g], -kBig, kBig));
+    b = make_float4(noi[0], noi[1], noi[2], clampf(rays[7 * nl + g], -kBig, kBig));
+    terms[2 * g] = a;
+    terms[2 * g + 1] = b;
+  }
+  __syncthreads();
+  unsigned long long needed = 0;   // counted by each warp's lane 0
+  for (int w0 = 0; w0 < nw; w0 += kWordGroup) {
+    if (lane_ok) {
+      for (int w = w0; w < min(w0 + kWordGroup, nw); ++w) {
+        const float4 p = s_box[2 * w], q = s_box[2 * w + 1];
+        bool hit;
+        slab(p.x, p.y, p.z, p.w, q.x, q.y, a, b, &hit);
+        const unsigned m = __ballot_sync(0xffffffffu, hit);
+        if (m == 0u) {
+          cb[(size_t)w * tile] = 0;
+        } else if (wl == 0) {
+          s_units[atomicAdd(&s_count, 1)] = CovUnit{m, (unsigned)((t * nw + w) << 5 | (i >> 5))};
+        }
+        if (wl == 0) needed += 32u * (1u + __popc(m));   // 32 box tests, 32 column tests a lane entering
+      }
+    }
+    __syncthreads();   // the group's units are listed
+    const int n = s_count;
+    if (threadIdx.x == 0) s_base = n ? atomicAdd(n_units, n) : 0;
+    __syncthreads();   // every thread has read s_count
+    if (threadIdx.x == 0) s_count = 0;
+    for (int k = threadIdx.x; k < n; k += kLaneThreads) units[s_base + k] = s_units[k];
+    __syncthreads();   // s_units is rewritten by the next group
+  }
+  // the box tests made (32 a warp and word), by lane 0 of each warp
+  if (tests_run != nullptr) add_count(tests_run, lane_ok && wl == 0 ? 32ull * nw : 0ull);
+  if (tests_needed != nullptr) add_count(tests_needed, needed);
+}
+
+// Pass 2. The listed units, the launch's warps in turn, each walked
+// column-parallel (at most kSparseLanes lanes) or lane-parallel: a lane's
+// 32 tests take 32 steps of the warp either way, a step of the ballot walk
+// costs more.
+__global__ void __launch_bounds__(kColThreads, kColBlocksPerSM) coverage_columns_kernel(
+    const float4* __restrict__ terms, const float* __restrict__ bounds,
+    const CovUnit* __restrict__ units, const int* __restrict__ n_units,
+    float* __restrict__ tnear, int* __restrict__ covbits,
+    unsigned long long* __restrict__ tests_run, int tile, int cpad, int n_clusters) {
+  __shared__ float4 s_lh[kColWarps][32];   // column cc: lx hx ly hy
+  __shared__ float2 s_z[kColWarps][32];    // lz hz
+  __shared__ int s_key[kColWarps][32];     // the column's least entry t, as a key
+  __shared__ float4 s_ray[kColWarps][64];  // lane l of the chunk: [2l] inv tmin, [2l+1] noi tmax
   const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
-  for (int w = 0; w < nwords; ++w) {
-    unsigned word[kMaxLanes] = {0u, 0u, 0u, 0u};
-    for (int cc = 0; cc < 32; ++cc) {
-      const int c = w * 32 + cc;
-      float m = CUDART_INF_F;
+  const int nw = cpad / 32;
+  const int n = *n_units;
+  unsigned long long run = 0;   // counted by each warp's lane 0
+  for (int k = blockIdx.x * kColWarps + warp; k < n; k += gridDim.x * kColWarps) {
+    const CovUnit u = units[k];
+    const int tw = u.where >> 5, j = u.where & 31;
+    const int t = tw / nw, w = tw - t * nw;
+    const int c = w * 32 + wl;
+    const size_t g = (size_t)t * tile + j * 32 + wl;   // this thread's lane of the chunk
+    const float4 p = make_float4(bounds[c], bounds[cpad + c], bounds[2 * (size_t)cpad + c],
+                                 bounds[3 * (size_t)cpad + c]);
+    const float2 q = make_float2(bounds[4 * (size_t)cpad + c], bounds[5 * (size_t)cpad + c]);
+    const int lanes = __popc(u.mask);
+    if (wl == 0) run += 32u * lanes;
+    unsigned out = 0;
+    if (lanes <= kSparseLanes) {   // column-parallel
+      s_ray[warp][2 * wl] = terms[2 * g];
+      s_ray[warp][2 * wl + 1] = terms[2 * g + 1];
+      __syncwarp();
+      int m = kInfKey;
+      for (unsigned bits = u.mask; bits; bits &= bits - 1u) {
+        const int l = __ffs(bits) - 1;
+        bool hit;
+        const float tn = slab(p.x, p.y, p.z, p.w, q.x, q.y, s_ray[warp][2 * l],
+                              s_ray[warp][2 * l + 1], &hit);
+        const unsigned word = __ballot_sync(0xffffffffu, hit);
+        if (wl == l) out = word;
+        if (hit) m = min(m, min_key(tn));
+      }
+      s_key[warp][wl] = m;
+    } else {   // lane-parallel
+      s_lh[warp][wl] = p;
+      s_z[warp][wl] = q;
+      s_key[warp][wl] = kInfKey;
+      __syncwarp();
+      if ((u.mask >> wl) & 1u) {
+        const float4 a = terms[2 * g], b = terms[2 * g + 1];
 #pragma unroll
-      for (int l = 0; l < kMaxLanes; ++l) {
-        if (l < lpt) {
-          float tn = tmn[l], tf = tmx[l];
-#pragma unroll
-          for (int ax = 0; ax < 3; ++ax) {
-            const float lo = add(mul(sb[2 * ax][c], inv[l][ax]), noi[l][ax]);
-            const float hi = add(mul(sb[2 * ax + 1][c], inv[l][ax]), noi[l][ax]);
-            tn = fmaxf(tn, fminf(lo, hi));
-            tf = fminf(tf, mul(fmaxf(lo, hi), 1.0001f));
-          }
-          if (tn <= tf) {
-            word[l] |= 1u << cc;
-            m = fminf(m, tn);
+        for (int cc = 0; cc < 32; ++cc) {
+          const float4 pc = s_lh[warp][cc];
+          const float2 qc = s_z[warp][cc];
+          bool hit;
+          const float tn = slab(pc.x, pc.y, pc.z, pc.w, qc.x, qc.y, a, b, &hit);
+          if (hit) {
+            out |= 1u << cc;
+            atomicMin(&s_key[warp][cc], min_key(tn));
           }
         }
       }
-      for (int off = 16; off; off >>= 1)
-        m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      if (wl == 0) smin[warp][c] = m;
     }
-#pragma unroll
-    for (int l = 0; l < kMaxLanes; ++l)
-      if (l < lpt) cb[(size_t)w * tile + threadIdx.x + l * kThreads] = (int)word[l];
+    __syncwarp();
+    covbits[(size_t)tw * tile + j * 32 + wl] = (int)out;
+    const int key = s_key[warp][wl];
+    if (key != kInfKey && c < n_clusters) atomic_min_key(tnear + (size_t)t * cpad + c, key);
+    __syncwarp();   // the warp's shared memory is rewritten by its next unit
   }
-  __syncthreads();
-  for (int c = threadIdx.x; c < kCovClusters; c += blockDim.x) {
-    float m = smin[0][c];
-    for (int w = 1; w < kThreads / 32; ++w) m = fminf(m, smin[w][c]);
-    tnear[(size_t)t * cpad + c0 + c] = (c0 + c < n_clusters) ? m : CUDART_INF_F;
-  }
+  if (tests_run != nullptr) add_count(tests_run, run);
 }
 
 // ------------------------------------------------- shared by the tracers
@@ -440,14 +645,6 @@ __device__ __forceinline__ unsigned long long test_units(
   return n;
 }
 
-// Adds a block's counts to a global counter: a warp sum, then one atomic
-// per warp.
-__device__ __forceinline__ void add_count(unsigned long long* __restrict__ out,
-                                          unsigned long long n) {
-  for (int off = 16; off; off >>= 1) n += __shfl_xor_sync(0xffffffffu, n, off);
-  if ((threadIdx.x & 31) == 0 && n) atomicAdd(out, n);
-}
-
 // ---------------------------------------------------------- closest hit
 // Replaces traverse_tiles (pbrt_tpu/kernels/cluster_pallas.py:876, body
 // _make_closest_kernel_lc). Closest hit per lane over the tile's covered
@@ -751,11 +948,11 @@ cudaError_t allow_smem(K kernel, int dyn, int fixed) {
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// Stream-ordered scratch for a launch's tile order, from a memory pool of
-// this library's own on the current device, which keeps its memory
-// between launches (the device's default pool hands it back to the
-// driver at every synchronisation).
-cudaError_t order_alloc(int nt, cudaStream_t stream, int** order) {
+// Stream-ordered scratch of `bytes` (a launch's tile order, coverage's
+// ray terms and unit list), from a memory pool of this library's own on the
+// current device, which keeps its memory between launches (the device's
+// default pool hands it back to the driver at every synchronisation).
+cudaError_t scratch_alloc(size_t bytes, cudaStream_t stream, void** out) {
   constexpr int kMaxDevices = 64;
   static std::mutex mu;
   static cudaMemPool_t pools[kMaxDevices] = {};
@@ -778,7 +975,21 @@ cudaError_t order_alloc(int nt, cudaStream_t stream, int** order) {
       pools[dev] = pool;
     }
   }
-  return cudaMallocFromPoolAsync((void**)order, (size_t)nt * sizeof(int), pools[dev], stream);
+  return cudaMallocFromPoolAsync(out, bytes, pools[dev], stream);
+}
+
+// Blocks of the column pass: enough to fill every SM, fewer for a small
+// launch.
+int column_blocks(long long units) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
+  }
+  const long long need = (units + kColWarps - 1) / kColWarps;
+  return (int)(need < (long long)sms * kColBlocksPerSM ? need : (long long)sms * kColBlocksPerSM);
 }
 
 // A tracer launch: checks its shape, allows its dynamic shared memory
@@ -794,7 +1005,8 @@ int launch_tracer(K kernel, const void* counts, int nt, int tile, int W, int k, 
   if (e == cudaSuccess) e = allow_smem(tile_order_kernel, order_dyn, kOrderThreads / 8);
   if (e != cudaSuccess) return (int)e;
   int* order = nullptr;
-  if ((e = order_alloc(nt, stream, &order)) != cudaSuccess) return (int)e;
+  if ((e = scratch_alloc((size_t)nt * sizeof(int), stream, (void**)&order)) != cudaSuccess)
+    return (int)e;
   tile_order_kernel<<<1, kOrderThreads, order_dyn, stream>>>((const int*)counts, nt, W,
                                                              order);
   e = cudaGetLastError();
@@ -810,17 +1022,55 @@ int launch_tracer(K kernel, const void* counts, int nt, int tile, int W, int k, 
 
 extern "C" {
 
+// Coverage with its test counters (either may be NULL): the lane pass,
+// then the column pass, with the ray terms, the unit list and its count in
+// scratch.
+int pbrt_coverage_counted(const void* rays, const void* bounds, const void* n_live_tiles,
+                          void* tnear, void* covbits, void* tests_run, void* tests_needed,
+                          int nt, int tile, int cpad, int n_clusters, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int box_smem = (cpad / 32) * 2 * (int)sizeof(float4);
+  const long long max_units = (long long)nt * (cpad / 32) * (tile / 32);
+  // a unit's `where` holds (t·nw + w) in 27 bits and the chunk in 5
+  if (tile <= 0 || tile % 32 || tile > 1024 || cpad <= 0 || cpad % 32 ||
+      box_smem > 200 * 1024 || (long long)nt * (cpad / 32) >= (1ll << 27))
+    return (int)cudaErrorInvalidValue;
+  if (nt == 0) return (int)cudaSuccess;
+  cudaError_t e = allow_smem(coverage_lanes_kernel, box_smem, (int)(kLaneWarps * kWordGroup *
+                                                                    sizeof(CovUnit)));
+  if (e != cudaSuccess) return (int)e;
+  const size_t lanes = (size_t)nt * tile;
+  void* scratch = nullptr;
+  e = scratch_alloc(lanes * 2 * sizeof(float4) + max_units * sizeof(CovUnit) + sizeof(int), s,
+                    &scratch);
+  if (e != cudaSuccess) return (int)e;
+  float4* terms = (float4*)scratch;
+  CovUnit* units = (CovUnit*)(terms + 2 * lanes);
+  int* n_units = (int*)(units + max_units);
+  e = cudaMemsetAsync(n_units, 0, sizeof(int), s);
+  if (e == cudaSuccess) {
+    coverage_lanes_kernel<<<nt * ((tile + kLaneThreads - 1) / kLaneThreads), kLaneThreads,
+                            box_smem, s>>>(
+        (const float*)rays, (const float*)bounds, (const int*)n_live_tiles, terms, units,
+        n_units, (float*)tnear, (int*)covbits, (unsigned long long*)tests_run,
+        (unsigned long long*)tests_needed, nt, tile, cpad);
+    e = cudaGetLastError();
+  }
+  if (e == cudaSuccess) {
+    coverage_columns_kernel<<<column_blocks(max_units), kColThreads, 0, s>>>(
+        terms, (const float*)bounds, units, n_units, (float*)tnear, (int*)covbits,
+        (unsigned long long*)tests_run, tile, cpad, n_clusters);
+    e = cudaGetLastError();
+  }
+  const cudaError_t f = cudaFreeAsync(scratch, s);
+  return (int)(e != cudaSuccess ? e : f);
+}
+
 int pbrt_coverage(const void* rays, const void* bounds, const void* n_live_tiles,
                   void* tnear, void* covbits, int nt, int tile, int cpad,
                   int n_clusters, void* stream) {
-  if (tile % kThreads != 0 || tile / kThreads > kMaxLanes ||
-      cpad % kCovClusters != 0)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(cpad / kCovClusters, nt);
-  coverage_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)rays, (const float*)bounds, (const int*)n_live_tiles,
-      (float*)tnear, (int*)covbits, nt, tile, cpad, n_clusters);
-  return (int)cudaGetLastError();
+  return pbrt_coverage_counted(rays, bounds, n_live_tiles, tnear, covbits, nullptr, nullptr,
+                               nt, tile, cpad, n_clusters, stream);
 }
 
 int pbrt_closest(const void* packed, const void* rays, const void* anyhit,

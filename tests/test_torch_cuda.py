@@ -31,6 +31,74 @@ def _soup_and_rays(seed, n=3000):
             f(np.full(n, 1e-4)), f(t_max), f(flag))
 
 
+def adversarial_coverage_case(n_clusters, tile, device, seed=7):
+    """Coverage inputs that sit on the slab test's edges: rays (8, 3·tile)
+    of three tiles, the last one dead (n_live_tiles = 2, its rays would
+    enter boxes), bounds (6, CPAD) with CPAD the next multiple of 128
+    (pad columns zero: the zero box at the origin), n_live_tiles (1,).
+    Boxes: random, one flat in y (a quad), one a point, one with a face
+    on x = 0, one inverted on x (lo > hi), one around the origin. Live
+    lanes in turn: random; direction components exactly 0; components
+    ±1e-13 (below the 1e-12 clamp); origins on a box face; origins inside
+    a box; rays grazing a face (origin in the face's plane, direction
+    along it); rays through the origin; tmin = 0 with a short tmax; with
+    tmax = inf but for 10% dead lanes (tmax = −1)."""
+    r = np.random.RandomState(seed)
+    cpad = -(-n_clusters // 128) * 128
+    ctr = r.rand(n_clusters, 3) * 10.0
+    half = 0.1 + r.rand(n_clusters, 3) * 0.9
+    lo, hi = ctr - half, ctr + half
+    lo[0, 1] = hi[0, 1] = 2.0
+    lo[1] = hi[1] = ctr[1]
+    lo[2, 0] = 0.0
+    lo[3, 0], hi[3, 0] = hi[3, 0], lo[3, 0]
+    lo[4], hi[4] = -0.5, 0.5
+    bounds = np.zeros((6, cpad), np.float32)
+    for ax in range(3):
+        bounds[2 * ax, :n_clusters] = lo[:, ax]
+        bounds[2 * ax + 1, :n_clusters] = hi[:, ax]
+    n = 3 * tile
+    d = r.randn(n, 3)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = r.rand(n, 3) * 14.0 - 2.0
+    t_min = np.full(n, 1e-4)
+    t_max = np.full(n, np.inf)
+    box = r.randint(0, n_clusters, n)
+    ax = r.randint(0, 3, n)
+    ax2 = (ax + 1 + r.randint(0, 2, n)) % 3
+    face = np.where(r.rand(n) < 0.5, bounds[2 * ax, box], bounds[2 * ax + 1, box])
+    for i in range(2 * tile):
+        kind = i % 9
+        if kind == 1:
+            d[i, ax[i]] = 0.0
+            if i % 2:
+                d[i, ax2[i]] = 0.0
+        elif kind == 2:
+            d[i, ax[i]] = 1e-13 if i % 4 < 2 else -1e-13
+            if i % 2:
+                d[i, ax2[i]] = -d[i, ax[i]]
+        elif kind in (3, 4):
+            o[i] = ctr[box[i]]
+            if kind == 3:
+                o[i, ax[i]] = face[i]
+        elif kind == 5:
+            o[i] = ctr[box[i]]
+            o[i, ax[i]] = face[i]
+            o[i, ax2[i]] = bounds[2 * ax2[i], box[i]] - 1.0
+            d[i] = 0.0
+            d[i, ax2[i]] = 1.0
+        elif kind == 6:
+            o[i] = -d[i] * (1.0 + 4.0 * r.rand())
+        elif kind == 7:
+            t_min[i] = 0.0
+            t_max[i] = 0.5
+    t_max[:2 * tile][r.rand(2 * tile) < 0.1] = -1.0
+    rays = np.ascontiguousarray(np.concatenate([o.T, d.T, t_min[None], t_max[None]]),
+                                np.float32)
+    f = lambda a: torch.as_tensor(a, device=device)   # noqa: E731
+    return f(rays), f(bounds), f(np.array([2], np.int32))
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -46,9 +114,15 @@ def test_kernels_equal_plain_versions(card, seed):
     n_live = int((rays[7] > rays[6]).sum())
     nlt = torch.tensor([-(-n_live // TILE)], dtype=torch.int32, device="cuda")
     launches = (tkern.coverage.launches, tkern.closest.launches)
-    tn, cb = tkern.coverage(rays, cs.bounds, nlt, cs.n_clusters, TILE)
-    ptn, pcb = tkern.coverage_plain(rays, cs.bounds, nlt, cs.n_clusters, TILE)
+    run_k, need_k, run_p, need_p = (torch.zeros(1, dtype=torch.int64, device="cuda")
+                                    for _ in range(4))
+    tn, cb = tkern.coverage(rays, cs.bounds, nlt, cs.n_clusters, TILE, tests_run=run_k,
+                            tests_needed=need_k)
+    ptn, pcb = tkern.coverage_plain(rays, cs.bounds, nlt, cs.n_clusters, TILE,
+                                    tests_run=run_p, tests_needed=need_p)
     assert torch.equal(tn, ptn) and torch.equal(cb, pcb)
+    # the two-level walk runs the tests the data needs, as the plain version counts them
+    assert int(run_k) == int(need_k) == int(run_p) == int(need_p) > 0
     corder, tnear, counts, covbits = tcl.tile_cluster_order(cs, rays, TILE)
     args = (cs.packed, rays, flag_s, corder, tnear, counts, covbits, TILE)
     kt, pt, kn, pn = (torch.zeros(1, dtype=torch.int64, device="cuda") for _ in range(4))
@@ -59,6 +133,28 @@ def test_kernels_equal_plain_versions(card, seed):
     assert int(kt) == int(pt) == int(kn) == int(pn) > 0
     assert (tkern.coverage.launches, tkern.closest.launches) == \
         (launches[0] + 2, launches[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_clusters,tile", [(70, 256), (96, 512)])
+def test_coverage_equals_plain_version_on_adversarial_rays(card, n_clusters, tile):
+    """The coverage kernel on rays at the slab test's edges (zero and
+    1e-13 direction components, origins on faces and inside boxes, grazing
+    rays, rays through the pad columns' zero box, dead lanes and a dead
+    tile, a word that is part pad and one that is all pad): bit for bit
+    its plain version's tnear and covbits, and equal test counts."""
+    rays, bounds, nlt = adversarial_coverage_case(n_clusters, tile, "cuda")
+    run_k, need_k, run_p, need_p = (torch.zeros(1, dtype=torch.int64, device="cuda")
+                                    for _ in range(4))
+    tn, cb = tkern.coverage(rays, bounds, nlt, n_clusters, tile, tests_run=run_k,
+                            tests_needed=need_k)
+    ptn, pcb = tkern.coverage_plain(rays, bounds, nlt, n_clusters, tile, tests_run=run_p,
+                                    tests_needed=need_p)
+    assert torch.equal(tn, ptn) and torch.equal(cb, pcb)
+    assert torch.equal(torch.isinf(tn), torch.isinf(ptn))
+    assert (int(run_k) == int(need_k) == int(run_p) == int(need_p)
+            > 2 * tile * bounds.shape[1] // 32)
+    assert (cb[:2, -1] != 0).any()          # the all-pad word is entered
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B timing of builds of the ray-tracing kernels on the GPU, in one process.
 
-    python3 chip_kernel_ab.py LABEL=SOURCE ... [--reps N] [--res N]
+    python3 chip_kernel_ab.py LABEL=SOURCE ... [--reps N] [--res N] [--probes]
 
 Each SOURCE is a cluster.cu (this repository's, or an unpacked earlier
 tree's) built with the port's nvcc flags, all builds started together.
@@ -19,6 +19,17 @@ after a warm-up, the builds timed in turns, forward then backward (A B C
 C B A), so a drift of the card's clock spreads over all of them. The
 last line is one JSON object with every number. Needs a GPU; prints the
 card's name and power limit.
+
+With --probes the builds' probe kernels run instead, at the probe's
+shapes (kernels/probes.py): the overhead probe's stage and stage+compute
+at 64 clusters a tile and n5 = 1, ms per launch by CUDA events in turns
+as above, with the lanes that differ from the first build's (a build
+whose C interface has `pbrt_launch_floor` takes packed (C, 16, n5, K)
+and n5; an earlier one takes (C, 24, K) and CH, given the same 16
+features in its first 16 rows, so the results are equal); and every
+build's compaction probe at tile 1,024 by its device time
+(torch.profiler, 100 launches) and by its time a launch in a CUDA graph
+of 100, beside the empty kernel's of the first build that has one.
 """
 import ctypes
 import json
@@ -46,7 +57,110 @@ def load(so):
     if hasattr(lib, "pbrt_coverage_counted"):
         lib.pbrt_coverage_counted.restype = i
         lib.pbrt_coverage_counted.argtypes = [p] * 7 + [i] * 4 + [p]
+    lib.pbrt_compact_probe.restype = i
+    lib.pbrt_compact_probe.argtypes = [p] * 4 + [i, p]
+    lib.pbrt_overhead_probe.restype = i
+    lib.pbrt_overhead_probe.argtypes = [i] + [p] * 5 + [i] * 5 + [p]
+    if hasattr(lib, "pbrt_launch_floor"):
+        lib.pbrt_launch_floor.restype = i
+        lib.pbrt_launch_floor.argtypes = [p]
     return lib
+
+
+def timed_in_turns(labels, call, reps):
+    """{label: [ms, ms]}: ms per call(label) by CUDA events, REPS calls
+    after a warm-up, the labels in the order A B .. B A."""
+    import torch
+    ms = {label: [] for label in labels}
+    for label in list(labels) + list(labels)[::-1]:
+        call(label)
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            call(label)
+        b.record()
+        torch.cuda.synchronize()
+        ms[label].append(a.elapsed_time(b) / reps)
+    return ms
+
+
+def probe_ab(libs, reps):
+    """The probe kernels of every build (see --probes above)."""
+    import torch
+    import chip_smoke as cs_
+    from pbrt_tpu_torch.kernels import probes
+    P = lambda x: ctypes.c_void_p(x.data_ptr())   # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    nt, tile, cpad, k = probes.NT, probes.TILE, probes.CPAD, probes.K
+    new_builds = [lb for lb, lib in libs.items() if hasattr(lib, "pbrt_launch_floor")]
+    results = {}
+
+    def overhead_call(label, kind, inputs, out):
+        """A launch of `label`'s overhead probe, its arguments fixed now."""
+        lib, (packed, planes, corder, counts) = libs[label], inputs
+        hold = [packed, planes, corder, counts, out]    # alive while the call is
+        if label in new_builds:
+            args = (kind, P(packed), P(planes), P(corder), P(counts), P(out), nt, tile, cpad,
+                    packed.shape[2], k, stream)
+        else:
+            p24 = torch.zeros((packed.shape[0], 24, k), device=packed.device)
+            p24[:, :probes.NFEAT] = packed[:, :, 0]
+            hold.append(p24)
+            args = (kind, P(p24), P(planes), P(corder), P(counts), P(out), nt, tile, cpad, k,
+                    probes.CH, stream)
+
+        def call():
+            if lib.pbrt_overhead_probe(*args):
+                sys.exit(f"{label}: overhead probe launch failed")
+        call.hold = hold
+        return call
+
+    inputs = probes.overhead_inputs(64, "cuda", n5=1)
+    for kind in ("stage", "stage+compute"):
+        ki = probes.KINDS.index(kind)
+        outs = {lb: torch.empty((nt, tile), device="cuda") for lb in libs}
+        calls = {lb: overhead_call(lb, ki, inputs, outs[lb]) for lb in libs}
+        ref, row = None, {}
+        for label in libs:
+            calls[label]()
+            torch.cuda.synchronize()
+            ref = outs[label] if ref is None else ref
+            row[label] = dict(lanes_differ=int((outs[label] != ref).sum()))
+        for label, ms in timed_in_turns(libs, lambda lb: calls[lb](), reps).items():
+            row[label]["ms"] = ms
+        for label, r in row.items():
+            print(f"overhead n5=1 {kind:14s} counts=64 {label:12s} "
+                  + " ".join(f"{key}={v}" for key, v in r.items()), flush=True)
+        results[f"overhead[{kind} n5=1 counts=64]"] = row
+    mask, val = probes.compact_inputs(1024, "cuda")
+    out = torch.empty_like(val)
+    slot = torch.empty((1, 1024), dtype=torch.int32, device="cuda")
+
+    def launched(err):
+        if err:
+            sys.exit(f"probe launch failed: cudaError {err}")
+
+    def current():
+        return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    row = {}
+    for label, lib in libs.items():
+        def compact(lib=lib):
+            launched(lib.pbrt_compact_probe(P(mask), P(val), P(out), P(slot), 1024, current()))
+        row[label] = dict(device_ms=cs_.device_ms(compact, 100, "compact_probe_kernel"),
+                          graph_ms=cs_.graph_ms(compact))
+    if new_builds:
+        def floor(lib=libs[new_builds[0]]):
+            launched(lib.pbrt_launch_floor(current()))
+        row["launch_floor"] = dict(build=new_builds[0],
+                                   device_ms=cs_.device_ms(floor, 100, "launch_floor_kernel"),
+                                   graph_ms=cs_.graph_ms(floor))
+    for label, r in row.items():
+        print(f"compact tile=1024 {label:12s} " + " ".join(f"{key}={v}" for key, v in r.items()),
+              flush=True)
+    results["compact[tile=1024]"] = row
+    return results
 
 
 def main():
@@ -61,13 +175,15 @@ def main():
     from pbrt_tpu_torch.kernels import cluster_cuda as kern
     from pbrt_tpu_torch.scenes import bench_camera, bench_scene
 
-    args, reps, res = [], 20, 512
+    args, reps, res, probes_only = [], 20, 512, False
     it = iter(sys.argv[1:])
     for a in it:
         if a == "--reps":
             reps = int(next(it))
         elif a == "--res":
             res = int(next(it))
+        elif a == "--probes":
+            probes_only = True
         else:
             args.append(a.split("=", 1))
     if not args:
@@ -90,6 +206,11 @@ def main():
         usage[label] = kern.ptxas_usage(err)
         print(f"{label}: registers, spill store bytes {usage[label]}", flush=True)
     print(f"built {len(libs)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
+    if probes_only:
+        results = probe_ab(libs, reps)
+        print(json.dumps({"card": smi, "reps": reps, "builds": dict(args), "usage": usage,
+                          "results": results}), flush=True)
+        return
 
     dev = torch.device("cuda")
     scene = bench_scene(6, dev)
@@ -173,19 +294,9 @@ def main():
                 i = -1 if kind == "occluded" else 1
                 row[label] = dict(slot_tests=int(st), needed_tests=int(nd),
                                   lanes_differ=int((out[i] != ref[i]).sum()), ms=[])
-        order = list(libs) + list(libs)[::-1]
         out = outs()
-        for label in order:
-            lib = libs[label]
-            call(lib, out)
-            torch.cuda.synchronize()
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            for _ in range(reps):
-                call(lib, out)
-            b.record()
-            torch.cuda.synchronize()
-            row[label]["ms"].append(a.elapsed_time(b) / reps)
+        for label, ms in timed_in_turns(libs, lambda lb: call(libs[lb], out), reps).items():
+            row[label]["ms"] = ms
         for label, r in row.items():
             print(f"{tag:14s} {kind:8s} {label:12s} "
                   + " ".join(f"{key}={v}" for key, v in r.items()), flush=True)

@@ -31,11 +31,16 @@ Phases, each printing one line with its elapsed seconds:
      "one") and ambient occlusion (4 cosine samples), one warm-up and two
      timed frames each, with the launch counts per frame;
   7. the probe kernels (kernels/probes.py): the compaction probe at tiles
-     256 and 1,024 and the overhead probe, each against its plain version.
+     256 and 1,024 against its plain version (val 0 and -0.0 on some
+     lanes), its device time (torch.profiler) beside an empty kernel's;
+     the overhead probe at n5 = 5 and 1, every kind and cluster count,
+     each held bit for bit to its plain version on 8 tiles.
 Then one JSON line with each kernel's numbers (coverage's for each of the
 four wavefronts, with the bound of the tests needed and that of testing
-every pair; the tracers' slot-test counts; every kernel's registers and
-spill bytes from nvcc -Xptxas -v), the nvidia-smi line, and
+every pair; the tracers' slot-test counts; the overhead probe's non-fused
+issue ceiling beside its bound; the compaction probe's launch floor;
+every kernel's registers and spill bytes from nvcc -Xptxas -v), the
+nvidia-smi line, and
 the last line {"ok": true, "device": {...}}. Any failed check exits
 non-zero before that line.
 """
@@ -273,47 +278,116 @@ def sent_wavefronts(clmod, run):
     return sent
 
 
+def device_ms(fn, reps, match=None):
+    """Mean device milliseconds per call of fn(), from torch.profiler: the
+    summed durations of the GPU kernels that `reps` calls launched (those
+    whose names hold `match`, if given), after one warm-up. The kernels'
+    own time on the card, not the host's rate of issuing them. None, with
+    a log line, when the profiler did not record every launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+          and (match is None or match in e.name)]
+    if not ev or (match is not None and len(ev) != reps):
+        names = sorted({e.name[:60] for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA})
+        log("profiler_missed", match=match, recorded=len(ev), calls=reps, device_events=names)
+        return None
+    return sum(e.device_time_total for e in ev) / reps / 1e3
+
+
+def graph_ms(fn, n=100, reps=5, counted=None):
+    """Milliseconds a call of fn() in a CUDA graph of n calls, by CUDA
+    events around REPS replays: back-to-back launches on the card, the
+    host's issue taken out. `counted`, the wrapper fn() calls, keeps the
+    count of its kernel's launches that ran: the capture records n calls
+    and runs none, each replay runs them."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    before = counted.launches if counted else 0
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    if counted:
+        recorded, counted.launches = counted.launches - before, before
+    g.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    if counted:
+        counted.launches += recorded * (1 + reps)
+    return a.elapsed_time(b) / reps / n
+
+
 def check_probes(probes):
-    """Phase 7: both probes against their plain versions; the overhead
-    probe's µs per tile for each kind and cluster count."""
+    """Phase 7: both probes against their plain versions; the compaction
+    probe's device time beside an empty kernel's; the overhead probe's ms
+    for each n5, kind and cluster count."""
     import torch
     c_err = o_err = 0.0
     for tile in (256, 1024):
-        mask, val = probes.compact_inputs(tile, "cuda")
+        mask, val = probes.compact_inputs(tile, "cuda", zeros=True)
         out, slot = probes.compact(mask, val)
         pout, pslot = probes.compact_plain(mask, val)
-        ok = torch.equal(out, pout) and torch.equal(slot, pslot)
+        ok = torch.equal(out.view(torch.int32), pout.view(torch.int32)) and \
+            torch.equal(slot, pslot)
         c_err = max(c_err, float((out - pout).abs().max()),
                     float((slot - pslot).abs().max()))
         log("probe_compact", tile=tile, set_lanes=int(mask.sum()), equal=ok)
         if not ok:
             fail(f"compaction probe at tile {tile} disagrees with its plain version")
-    c_ms = cuda_ms(lambda: probes.compact(mask, val), 20)
-    c_pms = cuda_ms(lambda: probes.compact_plain(mask, val), 20)
-    sub = 8
-    over = {}
-    for kind in probes.KINDS:
-        for count in ((0,) if kind == "empty" else probes.COUNTS):
-            args = probes.overhead_inputs(count, "cuda")
-            out = probes.overhead(kind, *args, probes.TILE)
-            if kind == "stage+compute":     # held to its plain version on `sub` tiles
+    # device times: the profiler's kernel durations where it recorded every
+    # launch, else the time a launch in a CUDA graph of 100 (both printed)
+    compact = dict(max_abs_err=c_err,
+                   host_loop_ms=cuda_ms(lambda: probes.compact(mask, val), 100))
+    for key, fn, match, counted in (
+            ("ms", lambda: probes.compact(mask, val), "compact_probe_kernel", probes.compact),
+            ("launch_floor_ms", lambda: probes.launch_floor(mask.device), "launch_floor_kernel",
+             None),
+            ("plain_ms", lambda: probes.compact_plain(mask, val), None, None)):
+        compact[f"profiler_{key}"] = device_ms(fn, 100, match)
+        compact[f"graph_{key}"] = graph_ms(fn, counted=counted)
+        compact[key] = compact[f"profiler_{key}"] or compact[f"graph_{key}"]
+    log("probe_compact_time", tile=1024, **compact)
+    sub, over, held = 8, {}, {}
+    for n5 in (probes.N5, 1):
+        for kind in probes.KINDS:
+            for count in ((0,) if kind == "empty" else probes.COUNTS):
+                args = probes.overhead_inputs(count, "cuda", n5=n5)
+                out = probes.overhead(kind, *args, probes.TILE)
+                # held to its plain version on `sub` tiles
                 packed, planes, corder, counts = args
                 small = (packed, planes.view(8, -1, probes.TILE)[:, :sub].reshape(8, -1)
                          .contiguous(), corder[:sub].contiguous(), counts[:sub].contiguous())
                 plain = probes.overhead_plain(kind, *small, probes.TILE)
                 o_err = max(o_err, float((out[:sub] - plain).abs().max()))
-                if not torch.equal(out[:sub], plain):
-                    fail(f"overhead probe {kind} counts={count} disagrees with its plain version")
-                o_pms = cuda_ms(lambda: probes.overhead_plain(kind, *small, probes.TILE), 1)
-                o_kms = cuda_ms(lambda: probes.overhead(kind, *small, probes.TILE), 5)
-            ms = cuda_ms(lambda: probes.overhead(kind, *args, probes.TILE), 5)
-            over[(kind, count)] = ms
-            log("probe_overhead", kind=kind, counts=count, ms=f"{ms:.4f}",
-                us_per_tile=f"{ms * 1e3 / probes.NT:.4f}")
-    # the plain and subset times are those of the last (largest) count
-    return dict(compact_ms=c_ms, compact_plain_ms=c_pms, overhead=over,
-                compact_max_abs_err=c_err, overhead_max_abs_err=o_err,
-                overhead_plain_ms=o_pms, overhead_subset_kernel_ms=o_kms, plain_tiles=sub)
+                if not torch.equal(out[:sub].view(torch.int32), plain.view(torch.int32)):
+                    fail(f"overhead probe n5={n5} {kind} counts={count} disagrees with its "
+                         "plain version")
+                if kind == "stage+compute" and count == probes.COUNTS[-1]:
+                    held[n5] = dict(
+                        plain_ms=cuda_ms(lambda: probes.overhead_plain(kind, *small,
+                                                                       probes.TILE), 1),
+                        subset_kernel_ms=cuda_ms(lambda: probes.overhead(kind, *small,
+                                                                         probes.TILE), 5))
+                ms = cuda_ms(lambda: probes.overhead(kind, *args, probes.TILE), 5)
+                over[(n5, kind, count)] = ms
+                log("probe_overhead", n5=n5, kind=kind, counts=count, ms=f"{ms:.4f}",
+                    us_per_tile=f"{ms * 1e3 / probes.NT:.4f}", plain_tiles_equal=True)
+    return dict(compact=compact, overhead=over, overhead_held=held,
+                overhead_max_abs_err=o_err, plain_tiles=sub)
 
 
 def bounce_wavefront(scene, o, d, hit, seed=1):
@@ -573,26 +647,42 @@ def main():
                 needed_tests_direct_shadow=oc_d["needed_tests"],
                 **resources("occluded_kernel"))]
     kind, count = "stage+compute", probes.COUNTS[-1]
-    o_bound, o_by = bound(probes.overhead_ops(kind, count), probes.overhead_bytes(kind, count))
+
+    def overhead_bounds(n5):
+        """(bound ms, bound by, non-fused issue ceiling ms) at the probe's shapes."""
+        b_ms, by = bound(probes.overhead_ops(kind, count, n5=n5),
+                         probes.overhead_bytes(kind, count, n5=n5))
+        return b_ms, by, probes.overhead_ceiling_ops(kind, count, n5=n5) / H100_F32_FLOPS * 1e3
+
+    o_bound, o_by, o_ceiling = overhead_bounds(probes.N5)
+    o1_bound, _, o1_ceiling = overhead_bounds(1)
     rows.append(dict(name="overhead_probe", route="cuda",
                      source="pbrt_tpu_torch/kernels/csrc/cluster.cu",
                      replaces="profile_overhead.py:111", launches=probe_launches["overhead"],
                      max_abs_err=pr["overhead_max_abs_err"],
-                     ms=pr["overhead"][(kind, count)],
-                     plain_ms=pr["overhead_plain_ms"], bound_ms=o_bound, bound_by=o_by,
-                     library_ms=None, shape=f"{kind} counts={count}",
+                     ms=pr["overhead"][(probes.N5, kind, count)],
+                     plain_ms=pr["overhead_held"][probes.N5]["plain_ms"], bound_ms=o_bound,
+                     bound_by=o_by, ceiling_ms=o_ceiling, library_ms=None,
+                     shape=f"{kind} counts={count} n5={probes.N5}",
                      plain_tiles=pr["plain_tiles"],
-                     subset_kernel_ms=pr["overhead_subset_kernel_ms"],
-                     us_per_tile={f"{k} {c}": v * 1e3 / probes.NT
-                                  for (k, c), v in pr["overhead"].items()},
+                     subset_kernel_ms=pr["overhead_held"][probes.N5]["subset_kernel_ms"],
+                     n5_1=dict(ms=pr["overhead"][(1, kind, count)], bound_ms=o1_bound,
+                               ceiling_ms=o1_ceiling, **pr["overhead_held"][1]),
+                     ms_by_shape={f"n5={n} {k} {c}": v
+                                  for (n, k, c), v in pr["overhead"].items()},
                      **resources("overhead_probe_kernel")))
     c_bound, c_by = bound(0, 4 * 1024 * 4)     # mask, val in; out, slot out
+    cp = pr["compact"]
     rows.append(dict(name="compact_probe", route="cuda",
                      source="pbrt_tpu_torch/kernels/csrc/cluster.cu",
                      replaces="debug_lc_prim2.py:89", launches=probe_launches["compact"],
-                     max_abs_err=pr["compact_max_abs_err"], ms=pr["compact_ms"],
-                     plain_ms=pr["compact_plain_ms"],
-                     bound_ms=c_bound, bound_by=c_by, library_ms=None, shape="tile=1024",
+                     max_abs_err=cp["max_abs_err"], ms=cp["ms"], plain_ms=cp["plain_ms"],
+                     bound_ms=c_bound, bound_by=c_by, launch_floor_ms=cp["launch_floor_ms"],
+                     library_ms=None,
+                     shape="tile=1024; ms, plain_ms, launch_floor_ms: device time "
+                           "(torch.profiler, else a launch in a CUDA graph of 100)",
+                     **{k: v for k, v in cp.items() if k.startswith(("profiler_", "graph_"))},
+                     host_loop_ms=cp["host_loop_ms"],
                      **resources("compact_probe_kernel")))
     print(json.dumps({"kernels": rows}), flush=True)
     log("done", total_seconds=f"{time.perf_counter() - T0:.1f}")

@@ -155,6 +155,8 @@ def load_library():
         lib.pbrt_compact_probe.argtypes = [p, p, p, p, i, p]
         lib.pbrt_overhead_probe.restype = i
         lib.pbrt_overhead_probe.argtypes = [i] + [p] * 5 + [i] * 5 + [p]
+        lib.pbrt_launch_floor.restype = i
+        lib.pbrt_launch_floor.argtypes = [p]
         _lib = lib
         return lib
 
@@ -663,7 +665,8 @@ def resource_usage(src=_SRC):
 
 def ptxas_usage(log):
     """{kernel name: (registers, spill store bytes)} from the output of
-    `nvcc -Xptxas -v`."""
+    `nvcc -Xptxas -v`; a template's instantiations share a name and give
+    their most registers and most spill bytes."""
     out, name, spill = {}, None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?([a-z_]+_kernel)", line)
@@ -674,7 +677,8 @@ def ptxas_usage(log):
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            out[name] = (int(m.group(1)), spill)
+            r, b = out.get(name, (0, 0))
+            out[name] = (max(r, int(m.group(1))), max(b, spill))
             name = None
     return out
 

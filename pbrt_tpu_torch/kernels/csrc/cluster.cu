@@ -1,8 +1,9 @@
 // Tile×cluster ray-tracing kernels for Hopper (sm_90a): coverage, closest
-// hit and any hit, plus two probe kernels built on the same helpers. Plain
-// C interface, loaded with ctypes by pbrt_tpu_torch/kernels/cluster_cuda.py
-// and kernels/probes.py, which also hold the plain PyTorch version of each
-// kernel.
+// hit and any hit, plus two probe kernels (lane compaction, and the
+// per-block overhead of the TPU tracer's structure, staged by bulk copies)
+// and an empty kernel, the launch floor. Plain C interface, loaded with
+// ctypes by pbrt_tpu_torch/kernels/cluster_cuda.py and kernels/probes.py,
+// which also hold the plain PyTorch version of each kernel.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC -o libcluster.so cluster.cu
@@ -17,6 +18,7 @@
 //                               zero in pad columns
 //   packed   (C, 24, k)   f32   0:3 U0 | 3:6 V0 | 6:9 U1 | 9:12 V1 |
 //                               12:15 U2 | 15:18 V2 | 18:21 n | 21 k_plane
+//                               (the overhead probe's: (C, 16, n5, k))
 //   tnear    (nt, W)      f32   per-tile entry t, ascending (closest hit)
 //   corder   (nt, W)      i32   matching cluster ids
 //   covbits  (nt, cpad/32, tile) i32  bit c%32 of word c/32: lane enters c
@@ -28,9 +30,7 @@
 
 namespace {
 
-constexpr int kTraceThreads = 512;  // threads per compaction-probe block
 constexpr int kNF = 24;             // features per triangle slot
-constexpr int kMaxCH = 16;          // clusters per overhead-probe round
 constexpr int kSlotMask = 2047;     // low mantissa bits of t carry the slot
 constexpr float kBig = 3e37f;
 
@@ -424,56 +424,6 @@ __device__ __forceinline__ float slot_t(const SlotTest& s) {
   return mul(s.tnum, 1.0f / s.nd);
 }
 
-// Stages clusters cid[0..ch)'s features into feat (ch, k·kNF + 4) floats,
-// slot-major (24 floats a slot), each cluster's block padded by one float4
-// so that threads reading the same slot of ch clusters hit distinct banks.
-// Callers synchronise before reading feat. (The overhead probe's staging.)
-__device__ __forceinline__ void stage_clusters(const float* __restrict__ packed,
-                                               const int* cid, int ch, int k,
-                                               float* feat) {
-  const int cstride = k * kNF + 4;
-  for (int i = threadIdx.x; i < ch * k * kNF; i += blockDim.x) {
-    const int jj = i / (kNF * k);
-    const int rem = i - jj * kNF * k;
-    const int f = rem / k, kk = rem - f * k;
-    feat[jj * cstride + kk * kNF + f] = packed[(size_t)cid[jj] * kNF * k + rem];
-  }
-}
-
-// Rank-based lane compaction: writes the lanes i < tile with pred(i) to
-// list in ascending order and returns their count. Every thread of the
-// block calls it (blockDim a multiple of 32, at most kTraceThreads); it
-// ends with a barrier, so list and whatever the block wrote before the
-// call are visible to all threads after it. (The compaction probe's.)
-template <class Pred>
-__device__ __forceinline__ int compact_lanes(int tile, Pred pred, int* list,
-                                             int* s_scan) {
-  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  int base = 0;
-  for (int i0 = 0; i0 < tile; i0 += blockDim.x) {
-    const int i = i0 + threadIdx.x;
-    const bool p = i < tile && pred(i);
-    const unsigned ballot = __ballot_sync(0xffffffffu, p);
-    if (wl == 0) s_scan[warp] = __popc(ballot);
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int run = 0;
-      for (int w = 0; w < nw; ++w) {
-        const int c = s_scan[w];
-        s_scan[w] = run;
-        run += c;
-      }
-      s_scan[nw] = run;
-    }
-    __syncthreads();
-    if (p) list[base + s_scan[warp] + __popc(ballot & ((1u << wl) - 1u))] = i;
-    base += s_scan[nw];
-    __syncthreads();   // s_scan is rewritten by the next pass
-  }
-  return base;
-}
-
 // The block's shared state: each lane's ray as three float4 (ox oy oz dx |
 // dy dz mx my | mz tmin tmax −), its int result of the round (closest hit:
 // the (t|slot) key; any hit: the position j·k + kk of its first hit), the
@@ -855,79 +805,304 @@ __global__ void __launch_bounds__(kLanes, kMinBlocks) occluded_kernel(
 }
 
 // --------------------------------------------------------------- probes
-// Lane compaction probe: compacts a (1, tile) mask into a list with
-// compact_lanes, gathers val into the compacted domain, then expands it
-// back through the list: out = val where the mask is set (else 0), slot =
-// 1 there (else −1).
-__global__ void __launch_bounds__(kTraceThreads) compact_probe_kernel(
+// Lane compaction probe. Replaces the probe `main` of debug_lc_prim2.py:89
+// (body `kernel` :38), whose rank-based compaction of a (1, tile) mask
+// returns out = val and slot = 1 where the mask is set (> 0.5) and val is
+// nonzero, else out = 0 and slot = −1: the reference expands a lane only
+// where its gathered value vc != 0, so a set lane whose val is 0 or −0
+// stays 0, −1. One block of ceil(tile/32)·32 threads, a lane a thread, one
+// pass: each thread reads its lane's mask and val together (val into
+// shared memory: the kernel's one round trip to device memory), a ballot
+// and popcount rank each set lane within its warp, warp 0 scans the warp
+// totals with shuffles, each set lane writes its index to list[rank] (an
+// unset lane writes its 0 and −1 at once), and thread e gathers vc =
+// val[list[e]] into the compacted domain and expands it back,
+// out[list[e]] = vc, slot[list[e]] = 1 where vc != 0 (else 0, −1).
+// Bound: one launch's latency (the bytes are a few KB); launch_floor_kernel,
+// empty, is the floor beside it.
+__global__ void __launch_bounds__(1024) compact_probe_kernel(
     const float* __restrict__ mask, const float* __restrict__ val,
     float* __restrict__ out, int* __restrict__ slot, int tile) {
   __shared__ int list[1024];
-  __shared__ float vc[1024];
-  __shared__ int s_scan[kTraceThreads / 32 + 1];
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
+  __shared__ float sval[1024];
+  __shared__ int base[33];   // each warp's first rank, then the total
+  const int i = threadIdx.x, warp = i >> 5, wl = i & 31;
+  const int nw = (int)(blockDim.x >> 5);
+  const float m = i < tile ? mask[i] : 0.0f;
+  if (i < tile) sval[i] = val[i];
+  const bool p = m > 0.5f;
+  const unsigned ballot = __ballot_sync(0xffffffffu, p);
+  if (wl == 0) base[warp] = __popc(ballot);
+  __syncthreads();
+  if (warp == 0) {
+    const int n = wl < nw ? base[wl] : 0;
+    int incl = n;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int up = __shfl_up_sync(0xffffffffu, incl, off);
+      if (wl >= off) incl += up;
+    }
+    if (wl < nw) base[wl] = incl - n;
+    if (wl == 31) base[32] = incl;
+  }
+  __syncthreads();
+  if (p) {
+    list[base[warp] + __popc(ballot & ((1u << wl) - 1u))] = i;
+  } else if (i < tile) {
     out[i] = 0.0f;
     slot[i] = -1;
   }
-  const int m = compact_lanes(tile, [&](int i) { return mask[i] > 0.5f; }, list, s_scan);
-  for (int e = threadIdx.x; e < m; e += blockDim.x) vc[e] = val[list[e]];
   __syncthreads();
-  for (int e = threadIdx.x; e < m; e += blockDim.x) {
-    out[list[e]] = vc[e];
-    slot[list[e]] = 1;
+  if (i < base[32]) {
+    const int l = list[i];
+    const float vc = sval[l];
+    out[l] = vc != 0.0f ? vc : 0.0f;
+    slot[l] = vc != 0.0f ? 1 : -1;
   }
 }
 
-// Per-block overhead probe with the tracers' block structure: one block per
-// tile, one thread per lane, rounds of ch clusters in corder order.
+// An empty kernel: the device time of a one-block launch that does nothing.
+__global__ void launch_floor_kernel() {}
+
+// Overhead probe. Replaces `run` of profile_overhead.py:111 (body `make`
+// :38), the per-grid-step cost of traverse_tiles' block structure: one
+// block a tile, rounds of kProbeCH clusters in corder order, a cluster
+// being kProbeFeat features of n5·k slots, feature-major (packed (C, 16,
+// n5, k), 16·n5·k floats a cluster, contiguous).
 //   kind 0  empty:          out = ray plane 0
-//   kind 1  stage:          stage each round's clusters (stage_clusters),
-//                           acc += the first staged feature
-//   kind 2  stage+compute:  acc += min over the round's ch·k slots of the
-//                           dot of the slot's first 16 features with the
-//                           lane's 8 ray planes taken twice
+//   kind 1  stage:          stage every cluster of each round; acc +=
+//                           feature 0 of the round's first cluster's slot 0
+//   kind 2  stage+compute:  acc += min over the round's kProbeCH·n5·k
+//                           slots of Σ_q F[q]·plane[q mod 8], the q = 0
+//                           product first, then q = 1..15 added in turn
+// A round stages all of its clusters even where the tile's count ends in
+// it, as the reference does.
+//
+// Design. A thread holds two lanes (i and i + tile/2), their 16 plane
+// values in registers; `groups` groups of tile/2 threads each take their
+// share of every cluster's slots (two groups wherever the block's 1,024
+// threads allow, as at tile 256: 8 compute warps a block, twice the warps
+// to hide latency with), and at a round's end group 0 takes the minimum
+// over the groups' minima (exact in any order). Staging is a ring of
+// kProbeRing = 2 cluster buffers in dynamic shared memory (80 KB at n5 =
+// 5, so two blocks share an SM; three to five buffers, one block an SM,
+// ran slower at n5 = 5, and at n5 = 1 no ring size ran faster than
+// another). One producer warp, beside the
+// compute threads, has its first thread keep the ring full with one 1-D
+// bulk copy (cp.async.bulk, no tensor map) per cluster, which completes on
+// the buffer's `full` mbarrier (armed with expect_tx); it crosses round
+// boundaries, so the next round's clusters are in flight while this one
+// is computed. A buffer is refilled only once every compute thread has
+// arrived on its `empty` mbarrier after its last read. The compute reads
+// a buffer as packed lays it out: every thread of a warp reads the same
+// address (a broadcast), and one float4 load gives 4 slots of a feature,
+// so 16 loads feed 8 (lane, slot) dots of 31 float operations each, and
+// the FP32 pipes, not shared memory, set the pace. Each lane keeps its
+// running minimum over a round's clusters and adds it into acc at the
+// round's end.
+// Bound: operations, 32 f32 ops per (lane, slot) at 67 TFLOP/s, a rate
+// only fused multiply-adds reach. Built with -fmad=false (bit parity with
+// the plain version), the 16 products and 15 sums are separate
+// instructions, so the FP32 issue rate caps the kernel at twice the bound.
+// Tensor cores are out: mma/wgmma on f32 inputs round them to TF32, and
+// even a 3×TF32 split is not exact, so no tensor-core design can equal
+// the plain version bit for bit.
+constexpr int kProbeCH = 8;       // clusters per overhead-probe round
+constexpr int kProbeFeat = 16;    // features per overhead-probe slot
+constexpr int kProbeRing = 2;     // cluster buffers of the overhead probe's ring
+constexpr int kMaxDynSmem = 232448;   // 227 KB: what a block may take
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits for the completion of the barrier's phase of the given parity. A
+// wait of some 10 s (2^34 cycles) can only be a broken pipeline: it traps,
+// failing the launch, rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 34)) {
+      __trap();
+    }
+  }
+}
+
+// A barrier of the n compute threads (warps 0 .. n/32 − 1), without the
+// producer warp.
+__device__ __forceinline__ void compute_sync(int n) {
+  asm volatile("bar.sync 1, %0;" ::"r"(n) : "memory");
+}
+
+// One bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// NK4 = n5·k/4, the float4 columns of a feature: 160 and 32 at the probe's
+// shapes (n5 = 5 and 1, k = 128), fixed at compile time so that every
+// shared-memory load takes an immediate offset.
+template <int NK4>
 __global__ void __launch_bounds__(1024) overhead_probe_kernel(
     int kind, const float* __restrict__ packed, const float* __restrict__ planes,
     const int* __restrict__ corder, const int* __restrict__ counts,
-    float* __restrict__ out, int nt, int tile, int cpad, int k, int ch) {
-  extern __shared__ float4 smem4[];
-  float* feat = reinterpret_cast<float*>(smem4);
-  __shared__ int s_cid[kMaxCH];
-  const int t = blockIdx.x, i = threadIdx.x;
-  const size_t nl = (size_t)nt * tile, g = (size_t)t * tile + i;
-  if (kind == 0) {
+    float* __restrict__ out, int nt, int tile, int cpad, int groups) {
+  constexpr int nk4 = NK4, ring = kProbeRing;
+  const int half = tile / 2, i = threadIdx.x, t = blockIdx.x;
+  const int n_comp = half * groups, li = i % half, grp = i / half;
+  const size_t nl = (size_t)nt * tile, g = (size_t)t * tile + li;
+  if (kind == 0) {   // tile/2 threads, no producer warp, no shared memory
     out[g] = planes[g];
+    out[g + half] = planes[g + half];
     return;
   }
-  float lane[8];
-#pragma unroll
-  for (int p = 0; p < 8; ++p) lane[p] = planes[p * nl + g];
-  const int cstride = k * kNF + 4;
-  const int n_rounds = (counts[t] + ch - 1) / ch;
-  float acc = 0.0f;
-  for (int r = 0; r < n_rounds; ++r) {
-    __syncthreads();
-    if (i < ch) s_cid[i] = corder[(size_t)t * cpad + r * ch + i];
-    __syncthreads();
-    stage_clusters(packed, s_cid, ch, k, feat);
-    __syncthreads();
-    if (kind == 1) {
-      acc = add(acc, feat[0]);
-      continue;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int cl_floats = kProbeFeat * 4 * nk4;
+  float* feat = reinterpret_cast<float*>(smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127));
+  uint64_t* full = reinterpret_cast<uint64_t*>(feat + (size_t)ring * cl_floats);
+  uint64_t* empty = full + ring;
+  float* part = reinterpret_cast<float*>(empty + ring);   // (groups − 1, tile) minima
+  const int count = counts[t];
+  const int n_rounds =
+      count <= 0 ? 0 : min(count / kProbeCH + (count % kProbeCH != 0), cpad / kProbeCH);
+  const int total = n_rounds * kProbeCH;   // clusters staged, never past the tile's corder
+  if (i == 0) {
+    for (int s = 0; s < ring; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], n_comp);
     }
-    float m = CUDART_INF_F;
-    for (int jj = 0; jj < ch; ++jj) {
-      for (int kk = 0; kk < k; ++kk) {
-        const float* f = feat + jj * cstride + kk * kNF;
-        float d = mul(f[0], lane[0]);
-#pragma unroll
-        for (int q = 1; q < 16; ++q) d = add(d, mul(f[q], lane[q & 7]));
-        m = fminf(m, d);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (i >= n_comp) {   // the producer warp: its first thread keeps the ring full
+    if (i == n_comp) {
+      const uint32_t bytes = (uint32_t)cl_floats * 4u;
+      const int* ids = corder + (size_t)t * cpad;
+      for (int c = 0; c < total; ++c) {
+        const int s = c % ring;
+        if (c >= ring) mbar_wait(&empty[s], ((c / ring) - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], bytes);
+        bulk_load(feat + (size_t)s * cl_floats, packed + (size_t)ids[c] * cl_floats, bytes,
+                  &full[s]);
       }
     }
-    acc = add(acc, m);
+    return;
   }
-  out[g] = acc;
+
+  float la[8], lb[8];
+  if (kind == 2) {
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      la[p] = planes[p * nl + g];
+      lb[p] = planes[p * nl + g + half];
+    }
+  }
+  float acc_a = 0.0f, acc_b = 0.0f, ma = CUDART_INF_F, mb = CUDART_INF_F;
+  const int s4_lo = nk4 * grp / groups, s4_hi = nk4 * (grp + 1) / groups;   // this group's
+  for (int c = 0; c < total; ++c) {
+    const int s = c % ring, j = c % kProbeCH;
+    mbar_wait(&full[s], (c / ring) & 1);
+    const float* f = feat + (size_t)s * cl_floats;
+    if (kind == 1) {
+      if (j == 0 && grp == 0) {
+        acc_a = add(acc_a, f[0]);
+        acc_b = add(acc_b, f[0]);
+      }
+    } else {
+      const float4* f4 = reinterpret_cast<const float4*>(f);
+      for (int s4 = s4_lo; s4 < s4_hi; ++s4) {
+        float4 F = f4[s4];
+        float a0 = mul(F.x, la[0]), a1 = mul(F.y, la[0]), a2 = mul(F.z, la[0]),
+              a3 = mul(F.w, la[0]);
+        float b0 = mul(F.x, lb[0]), b1 = mul(F.y, lb[0]), b2 = mul(F.z, lb[0]),
+              b3 = mul(F.w, lb[0]);
+#pragma unroll
+        for (int q = 1; q < kProbeFeat; ++q) {
+          F = f4[q * nk4 + s4];
+          a0 = add(a0, mul(F.x, la[q & 7]));
+          a1 = add(a1, mul(F.y, la[q & 7]));
+          a2 = add(a2, mul(F.z, la[q & 7]));
+          a3 = add(a3, mul(F.w, la[q & 7]));
+          b0 = add(b0, mul(F.x, lb[q & 7]));
+          b1 = add(b1, mul(F.y, lb[q & 7]));
+          b2 = add(b2, mul(F.z, lb[q & 7]));
+          b3 = add(b3, mul(F.w, lb[q & 7]));
+        }
+        ma = fminf(ma, fminf(fminf(a0, a1), fminf(a2, a3)));
+        mb = fminf(mb, fminf(fminf(b0, b1), fminf(b2, b3)));
+      }
+    }
+    mbar_arrive(&empty[s]);   // this thread's reads of buffer s are done
+    if (kind == 2 && j == kProbeCH - 1) {   // the round's minima, over the groups
+      if (groups > 1) {
+        if (grp > 0) {
+          part[(grp - 1) * tile + li] = ma;
+          part[(grp - 1) * tile + li + half] = mb;
+        }
+        compute_sync(n_comp);
+        for (int h = 1; grp == 0 && h < groups; ++h) {
+          ma = fminf(ma, part[(h - 1) * tile + li]);
+          mb = fminf(mb, part[(h - 1) * tile + li + half]);
+        }
+        compute_sync(n_comp);   // part is rewritten at the next round's end
+      }
+      acc_a = add(acc_a, ma);
+      acc_b = add(acc_b, mb);
+      ma = mb = CUDART_INF_F;
+    }
+  }
+  if (grp == 0) {
+    out[g] = acc_a;
+    out[g + half] = acc_b;
+  }
+}
+
+// One launch of overhead_probe_kernel<NK4>, its dynamic shared memory
+// allowed first.
+template <int NK4>
+int launch_overhead_probe(int kind, const void* packed, const void* planes,
+                          const void* corder, const void* counts, void* out, int nt,
+                          int tile, int cpad, int groups, int smem, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      overhead_probe_kernel<NK4>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  overhead_probe_kernel<NK4>
+      <<<nt, kind == 0 ? tile / 2 : tile / 2 * groups + 32, smem, stream>>>(
+          kind, (const float*)packed, (const float*)planes, (const int*)corder,
+          (const int*)counts, (float*)out, nt, tile, cpad, groups);
+  return (int)cudaGetLastError();
 }
 
 bool bad_trace_shape(int tile, int W, int k, int ch) {
@@ -1110,25 +1285,33 @@ int pbrt_occluded(const void* packed, const void* rays, const void* corder,
 int pbrt_compact_probe(const void* mask, const void* val, void* out, void* slot,
                        int tile, void* stream) {
   if (tile <= 0 || tile > 1024) return (int)cudaErrorInvalidValue;
-  compact_probe_kernel<<<1, kTraceThreads, 0, (cudaStream_t)stream>>>(
+  compact_probe_kernel<<<1, (tile + 31) / 32 * 32, 0, (cudaStream_t)stream>>>(
       (const float*)mask, (const float*)val, (float*)out, (int*)slot, tile);
   return (int)cudaGetLastError();
 }
 
+int pbrt_launch_floor(void* stream) {
+  launch_floor_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+// The overhead probe: packed (C, 16, n5, 128), n5 5 or 1. A block has two
+// groups of tile/2 compute threads where they and the producer warp fit in
+// 1,024 threads (tile ≤ 960), else one.
 int pbrt_overhead_probe(int kind, const void* packed, const void* planes,
                         const void* corder, const void* counts, void* out, int nt,
-                        int tile, int cpad, int k, int ch, void* stream) {
-  if (kind < 0 || kind > 2 || tile <= 0 || tile > 1024 || tile % 32 ||
-      ch < 1 || ch > kMaxCH || cpad % ch)
+                        int tile, int cpad, int n5, int k, void* stream) {
+  const int groups = tile + 32 <= 1024 ? 2 : 1;
+  const long long cl_bytes = 4ll * kProbeFeat * n5 * k;
+  const long long smem =
+      kind == 0 ? 0 : kProbeRing * (cl_bytes + 16) + 128 + 4ll * (groups - 1) * tile;
+  if (kind < 0 || kind > 2 || tile <= 0 || tile > 1024 || tile % 64 || (n5 != 5 && n5 != 1) ||
+      k != 128 || cpad <= 0 || cpad % kProbeCH || smem > kMaxDynSmem)
     return (int)cudaErrorInvalidValue;
-  const int smem = kind == 0 ? 0 : ch * (k * kNF + 4) * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      overhead_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  overhead_probe_kernel<<<nt, tile, smem, (cudaStream_t)stream>>>(
-      kind, (const float*)packed, (const float*)planes, (const int*)corder,
-      (const int*)counts, (float*)out, nt, tile, cpad, k, ch);
-  return (int)cudaGetLastError();
+  if (nt == 0) return (int)cudaSuccess;
+  auto launch = n5 == 5 ? launch_overhead_probe<160> : launch_overhead_probe<32>;
+  return launch(kind, packed, planes, corder, counts, out, nt, tile, cpad, groups, (int)smem,
+                (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -240,8 +240,51 @@ def test_compaction_probe_equals_plain_version(card, tile):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tile", [1000, 256, 1024])
+@pytest.mark.parametrize("p", [1.0, 0.0, 0.7, "graded"])
+def test_compaction_probe_on_every_mask(card, tile, p):
+    """All lanes set, none set, 70% set and a graded mask in [0, 1) (set
+    above 0.5), val 0 and -0.0 among them, at a tile of whole warps and one
+    that ends inside a warp: bit for bit the plain version; one launch
+    counted."""
+    mask, val = probes.compact_inputs(tile, "cuda", seed=9, p=0.5 if p == "graded" else p,
+                                      zeros=True)
+    if p == "graded":
+        mask = torch.rand(mask.shape, generator=torch.Generator().manual_seed(9)).cuda()
+    before = probes.compact.launches
+    out, slot = probes.compact(mask, val)
+    assert probes.compact.launches == before + 1
+    pout, pslot = probes.compact_plain(mask, val)
+    assert torch.equal(out.view(torch.int32), pout.view(torch.int32))
+    assert torch.equal(slot, pslot)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", probes.KINDS)
 def test_overhead_probe_equals_plain_version(card, kind):
     args = probes.overhead_inputs(20, "cuda", nt=16)
     assert torch.equal(probes.overhead(kind, *args, probes.TILE),
                        probes.overhead_plain(kind, *args, probes.TILE))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n5", [1, 5])
+@pytest.mark.parametrize("tile", [256, 1024])
+def test_overhead_probe_ring_wrap(card, n5, tile):
+    """Counts 0, 7, 8, 9 and 64 in one launch (tiles with no round, a
+    partial round, one whole round, a round and one cluster, eight
+    rounds), so the ring of two cluster buffers wraps across rounds and
+    tiles at every phase: every kind bit for bit its plain version, at
+    n5 = 1 and 5, with two groups of compute threads (tile 256) and one
+    (tile 1,024); one launch counted each."""
+    packed, planes, corder, _ = probes.overhead_inputs(0, "cuda", nt=5, tile=tile, n5=n5,
+                                                       seed=n5)
+    counts = torch.tensor([0, 7, 8, 9, 64], dtype=torch.int32, device="cuda")
+    for kind in probes.KINDS:
+        before = probes.overhead.launches
+        out = probes.overhead(kind, packed, planes, corder, counts, tile)
+        assert probes.overhead.launches == before + 1
+        plain = probes.overhead_plain(kind, packed, planes, corder, counts, tile)
+        assert torch.equal(out.view(torch.int32), plain.view(torch.int32))
+        if kind != "empty":
+            assert (out[0] == 0).all() and (out[1:] != 0).all()

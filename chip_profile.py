@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time of one bench frame goes, on the GPU.
+"""Where the time of one frame goes, on the GPU.
 
-    python3 chip_profile.py [path|direct|ao ...]
+    python3 chip_profile.py [path|direct|ao|cornell ...]
 
 Renders the bench frames of chip_smoke.py (512×512, 1 spp, zerotwo; path
 at depth 5 with compact_from=1, direct lighting with strategy "one",
-ambient occlusion with 4 cosine samples; path alone by default) through
+ambient occlusion with 4 cosine samples; path alone by default), or
+`cornell`, baseline config 2 (the Cornell box with a mirror and a glass
+sphere, path at depth 5 with compact_from=1, 256×256 at 64 spp in
+wavefronts of pbrt_tpu_torch.scenes.CORNELL_SPP_BATCH samples), through
 pbrt_tpu_torch: for each, one warm-up, three frames timed with the host
 clock around torch.cuda.synchronize(), then one frame under
 torch.profiler. Prints the frame time, the device-busy share (sum of GPU
@@ -29,7 +32,9 @@ def main():
     from pbrt_tpu_torch.core import samplers as smp
     from pbrt_tpu_torch.integrate import ao, direct, driver, path
     from pbrt_tpu_torch.kernels import cluster_cuda as kern
-    from pbrt_tpu_torch.scenes import bench_camera, bench_scene
+    from pbrt_tpu_torch.scenes import (CORNELL_RES, CORNELL_SPP, CORNELL_SPP_BATCH,
+                                       bench_camera, bench_scene, cornell_camera,
+                                       cornell_spheres)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -37,25 +42,36 @@ def main():
     print("card:", smi, flush=True)
     dev = torch.device("cuda")
     kern.load_library()
-    scene = bench_scene(6, dev)
-    res = 512
-    cam = bench_camera((res, res), dev)
-    cfg = driver.RenderConfig(width=res, height=res, spp=1, max_depth=5,
-                              sampler=smp.SamplerConfig(kind="zerotwo", spp=1))
-    pid, sid = driver.lane_ids(cfg, 0, 1, dev)
-    makers = {"path": lambda: path.make_li(cfg, camera=cam, compact_from=1,
-                                           return_stats=True),
-              "direct": lambda: direct.make_li(cfg, "one", return_stats=True),
-              "ao": lambda: ao.make_li(cfg, True, 4, return_stats=True)}
-    for name in sys.argv[1:] or ["path"]:
-        profile_frame(torch, driver, scene, cam, cfg, pid, sid, name, makers[name]())
+    names = sys.argv[1:] or ["path"]
+    frames = {}
+    if set(names) & {"path", "direct", "ao"}:
+        scene = bench_scene(6, dev)
+        res = 512
+        cam = bench_camera((res, res), dev)
+        cfg = driver.RenderConfig(width=res, height=res, spp=1, max_depth=5,
+                                  sampler=smp.SamplerConfig(kind="zerotwo", spp=1))
+        pid, sid = driver.lane_ids(cfg, 0, 1, dev)
+        for name, li in (("path", path.make_li(cfg, camera=cam, compact_from=1,
+                                               return_stats=True)),
+                         ("direct", direct.make_li(cfg, "one", return_stats=True)),
+                         ("ao", ao.make_li(cfg, True, 4, return_stats=True))):
+            frames[name] = (lambda li=li: driver.render_lanes(scene, cam, cfg, li, pid,
+                                                              sid)[0])
+    if "cornell" in names:
+        cscene = cornell_spheres(True, "area", dev)
+        ccam = cornell_camera((CORNELL_RES, CORNELL_RES), dev)
+        ccfg = driver.RenderConfig(width=CORNELL_RES, height=CORNELL_RES, spp=CORNELL_SPP,
+                                   max_depth=5, samples_per_batch=CORNELL_SPP_BATCH,
+                                   sampler=smp.SamplerConfig(kind="zerotwo", spp=CORNELL_SPP))
+        cli = path.make_li(ccfg, camera=ccam, compact_from=1, return_stats=True)
+        frames["cornell"] = lambda: driver.render(cscene, ccam, ccfg, cli)
+    for name in names:
+        profile_frame(torch, name, frames[name])
 
 
-def profile_frame(torch, driver, scene, cam, cfg, pid, sid, name, li):
+def profile_frame(torch, name, frame):
+    """frame() renders one frame and returns (image, stats)."""
     from torch.profiler import ProfilerActivity, profile
-
-    def frame():
-        return driver.render_lanes(scene, cam, cfg, li, pid, sid)[0]
 
     frame()
     torch.cuda.synchronize()

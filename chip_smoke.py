@@ -7,6 +7,10 @@ Phases, each printing one line with its elapsed seconds:
   1. the card: nvidia-smi name and power limit, torch's device name;
   2. the CUDA kernel build (kernels/csrc/cluster.cu, nvcc, ctypes);
   3. the bench scene (81,928 triangles at subdivisions=6);
+  4a. every sampler kind's sample_1d and sample_2d at dims 0, 5, 159, 160
+     and 9000 on the card, equal (torch.equal) to the CPU's, at spp 16,
+     48 and 1,024, the sample indices below spp and (but stratified's)
+     977 and 0x01020304 above them;
   4. each kernel against its plain PyTorch version on the card, on the
      bench scene's primary rays and on one fused bounce wavefront (about
      20% dead lanes, half shadow lanes), the plain version on at most 32
@@ -30,6 +34,26 @@ Phases, each printing one line with its elapsed seconds:
   6b. the bench scene at 512×512, 1 spp with direct lighting (strategy
      "one") and ambient occlusion (4 cosine samples), one warm-up and two
      timed frames each, with the launch counts per frame;
+  8. the Cornell box of the baseline configs (one cluster, C = 1): the
+     three tracing kernels against their plain versions on its primary,
+     fused-bounce and direct-shadow wavefronts at 256×256, bit for bit
+     with equal test counts;
+  9. config 1: direct lighting, 64×64 at 4 spp, random sampler, for the
+     point, area and env lights: the tracers on every wavefront a frame
+     traces, against their plain versions on every tile (bit for bit,
+     equal test counts); one warm-up and three timed frames with the
+     launches, the card's image against the plain versions' on the CPU
+     (the pixel check);
+  10. config 2: path at depth 5 with the mirror and glass spheres,
+     256×256 at 64 spp in wavefronts of scenes.CORNELL_SPP_BATCH samples,
+     zerotwo, compact_from=1: the tracers on the six wavefronts its first
+     batch traces, against their plain versions on every tile; one
+     warm-up and two timed frames, 0 NaN, Mrays/s from rays_traced, the
+     launches; then 16×16 at 4 spp on the card against the CPU (the
+     pixel check);
+  11. sample_li and pdf_li_area_scene of all eight light kinds, and
+     build_spatial, on the card against the CPU (allclose on every lane
+     but the ill-conditioned ones, by a float64 rule: check_lights);
   7. the probe kernels (kernels/probes.py): the compaction probe at tiles
      256 and 1,024 against its plain version (val 0 and -0.0 on some
      lanes), its device time (torch.profiler) beside an empty kernel's;
@@ -85,12 +109,16 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def pick_tiles(nt, n_live_tiles):
-    """Up to PLAIN_TILES tile ids spread over the live tiles, plus the
-    first dead tile (live tiles first, as the plain version expects)."""
+def pick_tiles(nt, n_live_tiles, limit=PLAIN_TILES):
+    """Up to `limit` tile ids spread over the live tiles (every live tile
+    for None), plus the first dead tile (live tiles first, as the plain
+    version expects)."""
     import numpy as np
-    live = np.unique(np.linspace(0, max(n_live_tiles - 1, 0),
-                                 min(PLAIN_TILES - 1, n_live_tiles)).astype(int))
+    if limit is None:
+        live = np.arange(n_live_tiles)
+    else:
+        live = np.unique(np.linspace(0, max(n_live_tiles - 1, 0),
+                                     min(limit - 1, n_live_tiles)).astype(int))
     dead = [n_live_tiles] if n_live_tiles < nt else []
     return list(live) + dead, len(live)
 
@@ -101,10 +129,11 @@ def sub_rays(rays, sel, tile):
         .reshape(8, -1).contiguous()
 
 
-def check_coverage(kern, cs, rays, tile, tag):
-    """Kernel vs plain coverage on a tile subset, with equal test counts;
-    the kernel's run count on the whole wavefront against the flat count
-    (every lane of a live tile against every column); returns numbers."""
+def check_coverage(kern, cs, rays, tile, tag, limit=PLAIN_TILES, timed=True):
+    """Kernel vs plain coverage on a tile subset (`limit` tiles, None for
+    every tile), with equal test counts; the kernel's run count on the
+    whole wavefront against the flat count (every lane of a live tile
+    against every column); returns numbers (times only if `timed`)."""
     import torch
     nt = rays.shape[1] // tile
     n_live = int((rays[7] > rays[6]).sum())
@@ -114,7 +143,7 @@ def check_coverage(kern, cs, rays, tile, tag):
         torch.zeros(1, dtype=torch.int64, device=rays.device) for _ in range(6))
     tnear, covbits = kern.coverage(rays, cs.bounds, nlt_t, cs.n_clusters, tile,
                                    tests_run=run, tests_needed=needed)
-    sel, n_sel_live = pick_tiles(nt, nlt)
+    sel, n_sel_live = pick_tiles(nt, nlt, limit)
     rs = sub_rays(rays, sel, tile)
     nls = torch.tensor([n_sel_live], dtype=torch.int32, device=rays.device)
     tp, cp = kern.coverage_plain(rs, cs.bounds, nls, cs.n_clusters, tile,
@@ -140,6 +169,8 @@ def check_coverage(kern, cs, rays, tile, tag):
     if 2 * int(run) > flat:
         fail(f"coverage[{tag}]: runs {int(run)} slab tests, more than half of the "
              f"{flat} of testing every pair")
+    if not timed:
+        return dict(tests_run=int(run), tests_needed=int(needed), max_abs_err=err)
     ms = cuda_ms(lambda: kern.coverage(rays, cs.bounds, nlt_t, cs.n_clusters, tile), 20)
     kms = cuda_ms(lambda: kern.coverage(rs, cs.bounds, nls, cs.n_clusters, tile), 20)
     pms = cuda_ms(lambda: kern.coverage_plain(rs, cs.bounds, nls, cs.n_clusters, tile), 3)
@@ -152,8 +183,9 @@ def check_coverage(kern, cs, rays, tile, tag):
                 flat_tests=flat, max_abs_err=err)
 
 
-def check_closest(kern, clmod, cs, rays, flag, tile, tag):
-    """Kernel vs plain closest hit on a tile subset; returns numbers."""
+def check_closest(kern, clmod, cs, rays, flag, tile, tag, limit=PLAIN_TILES, timed=True):
+    """Kernel vs plain closest hit on a tile subset (`limit` tiles, None
+    for every tile); returns numbers (times only if `timed`)."""
     import torch
     nt = rays.shape[1] // tile
     corder, tnear, counts, covbits = clmod.tile_cluster_order(cs, rays, tile)
@@ -162,7 +194,7 @@ def check_closest(kern, clmod, cs, rays, flag, tile, tag):
     t, slot, bary = kern.closest(cs.packed, rays, flag, corder, tnear, counts, covbits,
                                  tile, slot_tests=tests, needed_tests=needed)
     n_live = int((rays[7] > rays[6]).sum())
-    sel, _ = pick_tiles(nt, (n_live + tile - 1) // tile)
+    sel, _ = pick_tiles(nt, (n_live + tile - 1) // tile, limit)
     ti = torch.as_tensor(sel, device=rays.device)
     rs = sub_rays(rays, sel, tile)
     fs = None if flag is None else flag.view(-1, tile)[ti].reshape(-1).contiguous()
@@ -192,9 +224,12 @@ def check_closest(kern, clmod, cs, rays, flag, tile, tag):
     if (not exact or t_bad or b_bad or int(ktests) != int(ptests)
             or int(kneeded) != int(pneeded)):
         fail(f"closest[{tag}]: kernel and plain version disagree")
-    if int(tests) != int(needed) or int(tests) > PRIOR_SLOT_TESTS[tag] // 2:
+    prior = PRIOR_SLOT_TESTS.get(tag)
+    if int(tests) != int(needed) or (prior is not None and int(tests) > prior // 2):
         fail(f"closest[{tag}]: runs {int(tests)} slot tests, needs {int(needed)}; "
-             f"the earlier kernel ran {PRIOR_SLOT_TESTS[tag]}")
+             f"the earlier kernel ran {prior}")
+    if not timed:
+        return dict(slot_tests=int(tests), needed_tests=int(needed), max_abs_err=err)
     ms = cuda_ms(lambda: kern.closest(cs.packed, rays, flag, corder, tnear, counts,
                                       covbits, tile), 10)
     kms = cuda_ms(lambda: kern.closest(*args), 10)
@@ -215,9 +250,11 @@ def bound(ops, nbytes):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def check_occluded(kern, clmod, cs, o, d, t_min, t_max, tile, tag):
-    """Any-hit kernel vs its plain version on a tile subset of one
-    wavefront; returns numbers."""
+def check_occluded(kern, clmod, cs, o, d, t_min, t_max, tile, tag, limit=PLAIN_TILES,
+                   timed=True):
+    """Any-hit kernel vs its plain version on a tile subset (`limit`
+    tiles, None for every tile) of one wavefront; returns numbers (times
+    only if `timed`)."""
     import torch
     _, rays, _ = clmod.prepare(cs, o, d, t_min, t_max, tile)
     nt = rays.shape[1] // tile
@@ -227,7 +264,7 @@ def check_occluded(kern, clmod, cs, o, d, t_min, t_max, tile, tag):
     occ = kern.occluded(cs.packed, rays, corder, tnear, counts, covbits, tile,
                         slot_tests=tests, needed_tests=needed)
     n_live = int((rays[7] > rays[6]).sum())
-    sel, _ = pick_tiles(nt, (n_live + tile - 1) // tile)
+    sel, _ = pick_tiles(nt, (n_live + tile - 1) // tile, limit)
     ti = torch.as_tensor(sel, device=rays.device)
     args = (cs.packed, sub_rays(rays, sel, tile), corder[ti].contiguous(),
             tnear[ti].contiguous(), counts[ti].contiguous(), covbits[ti].contiguous(), tile)
@@ -244,9 +281,11 @@ def check_occluded(kern, clmod, cs, o, d, t_min, t_max, tile, tag):
     if (mism or not torch.equal(occ_k, occ_p) or int(ktests) != int(ptests)
             or int(kneeded) != int(pneeded)):
         fail(f"occluded[{tag}]: kernel and plain version disagree")
-    if int(tests) > PRIOR_SLOT_TESTS[tag] // 2:
-        fail(f"occluded[{tag}]: runs {int(tests)} slot tests; the earlier kernel ran "
-             f"{PRIOR_SLOT_TESTS[tag]}")
+    prior = PRIOR_SLOT_TESTS.get(tag)
+    if prior is not None and int(tests) > prior // 2:
+        fail(f"occluded[{tag}]: runs {int(tests)} slot tests; the earlier kernel ran {prior}")
+    if not timed:
+        return dict(slot_tests=int(tests), needed_tests=int(needed), max_abs_err=err)
     full = (cs.packed, rays, corder, tnear, counts, covbits, tile)
     ms = cuda_ms(lambda: kern.occluded(*full), 10)
     kms = cuda_ms(lambda: kern.occluded(*args), 10)
@@ -261,21 +300,53 @@ def check_occluded(kern, clmod, cs, o, d, t_min, t_max, tile, tag):
 
 
 def sent_wavefronts(clmod, run):
-    """The (o, d, t_min, t_max) of every any-hit query that run() sends
-    through geom.cluster.occluded, in order: the wavefronts an integrator
-    really traces."""
-    real, sent = clmod.occluded, []
+    """The wavefronts run() sends through geom.cluster, in order: ("closest",
+    (o, d, t_min, t_max, flag)) for each closest-hit trace (intersect and
+    the fused intersect_occluded; flag None or the shadow lanes' marks) and
+    ("occluded", (o, d, t_min, t_max)) for each any-hit query. The
+    wavefronts an integrator really traces."""
+    real_trace, real_occ, sent = clmod._trace, clmod.occluded, []
 
-    def record(cs, o, d, t_min, t_max, tile):
-        sent.append((o, d, t_min, t_max))
-        return real(cs, o, d, t_min, t_max, tile)
+    def trace(cs, o, d, t_min, t_max, tile, flag=None):
+        sent.append(("closest", (o, d, t_min, t_max, flag)))
+        return real_trace(cs, o, d, t_min, t_max, tile, flag)
 
-    clmod.occluded = record
+    def occluded(cs, o, d, t_min, t_max, tile):
+        sent.append(("occluded", (o, d, t_min, t_max)))
+        return real_occ(cs, o, d, t_min, t_max, tile)
+
+    clmod._trace, clmod.occluded = trace, occluded
     try:
         run()
     finally:
-        clmod.occluded = real
+        clmod._trace, clmod.occluded = real_trace, real_occ
     return sent
+
+
+def any_hit_queries(sent):
+    """The (o, d, t_min, t_max) of the any-hit queries among `sent`."""
+    return [w for kind, w in sent if kind == "occluded"]
+
+
+def check_sent(kern, clmod, cs, sent, tile, tag):
+    """Coverage and the tracer of each wavefront in `sent` against their
+    plain versions on every tile, bit for bit with equal test counts (the
+    gates of check_coverage, check_closest and check_occluded). Returns
+    the shapes held: [(kind, lanes, tiles)]."""
+    held = []
+    for i, (kind, w) in enumerate(sent):
+        t = f"{tag}_{i}_{kind}"
+        if kind == "closest":
+            o, d, t_min, t_max, flag = w
+            _, rays, flag_s = clmod.prepare(cs, o, d, t_min, t_max, tile, flag)
+            check_coverage(kern, cs, rays, tile, t, limit=None, timed=False)
+            check_closest(kern, clmod, cs, rays, flag_s, tile, t, limit=None, timed=False)
+        else:
+            rays = clmod.prepare(cs, *w, tile)[1]
+            check_coverage(kern, cs, rays, tile, t, limit=None, timed=False)
+            check_occluded(kern, clmod, cs, *w, tile, t, limit=None, timed=False)
+        held.append((kind, int(w[0].shape[0]), rays.shape[1] // tile))
+    return held
 
 
 def device_ms(fn, reps, match=None):
@@ -430,6 +501,277 @@ def pixel_check(img, ref, frac=0.995, tol=2e-3):
         bool(ok.mean() >= frac and abs(img.mean() - ref.mean()) < 1e-3)
 
 
+def check_samplers(smp, pid, dev):
+    """Every sampler kind's streams on the card equal the CPU's: the
+    int64 uint32 emulation and true division (core/types.divisor). Each
+    kind at spp 16, 48 and 1,024 with sample indices below spp (48: the
+    stratum permutation's cycle walk), and every kind but stratified
+    also at those indices plus 977 and plus 0x01020304, so that every
+    byte of the Sobol' and max-min fold tables and Halton's higher
+    digits are looked up."""
+    import torch
+    by_kind, cases = {}, 0
+    for kind in smp.KINDS:
+        same = True
+        for spp in (16, 48, 1024):
+            c = smp.SamplerConfig(kind=kind, spp=spp, seed=7)
+            base = torch.remainder(pid * 7 + 3, spp)
+            for off in ((0,) if kind == "stratified" else (0, 977, 0x01020304)):
+                sid = base + off
+                for fn in (smp.sample_1d, smp.sample_2d):
+                    for dim in (0, 5, 159, 160, 9000):
+                        same &= torch.equal(fn(c, pid, sid, dim).cpu(),
+                                            fn(c, pid.cpu(), sid.cpu(), dim))
+                        cases += 1
+        by_kind[kind] = bool(same)
+    log("sampler", lanes=pid.numel(), cases=cases, card_equals_cpu=all(by_kind.values()),
+        **by_kind)
+    if not all(by_kind.values()):
+        fail(f"sampler streams differ between the card and the CPU: {by_kind}")
+
+
+def timed_frames(fn, kernels, frames):
+    """One warm-up call, then `frames` timed calls (host clock around
+    synchronize) with the kernels' launches counted from 0. Returns
+    (last result, ms per frame list, launches)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    times, out = [], None
+    for _ in range(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, times, {k: fn_.launches for k, fn_ in kernels.items()}
+
+
+def to_float64(x):
+    """x with every float32 tensor in it (dataclass and NamedTuple fields
+    too) as float64."""
+    import dataclasses
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.dtype == torch.float32 else x
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: to_float64(getattr(x, f.name))
+                                         for f in dataclasses.fields(x) if f.init})
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(to_float64(v) for v in x))
+    return x
+
+
+def check_lights(scenes_mod, lightsmod, distrib, dev):
+    """sample_li and pdf_li_area_scene of all eight kinds, and
+    build_spatial, on the card against the CPU at rtol 1e-4, atol 1e-6,
+    on every lane of a field but its ill-conditioned ones. A lane is
+    ill-conditioned in a field where float32 arithmetic on the CPU, at
+    the lane's inputs or at inputs moved by up to 4 ulps (4 draws), lands
+    outside that tolerance of a float64 evaluation at its inputs: a
+    grazing sample (cos ≈ 0 flips li and the pdf), a sphere seen from far
+    (1 − cos θmax cancels), an env sample near a pole. The rule reads the
+    CPU alone, so a fault of the card's shows on every other lane."""
+    import dataclasses
+    import numpy as np
+    import torch
+    sc = {d: scenes_mod.with_all_light_kinds(scenes_mod.cornell_spheres(
+        False, "area", d, clusters=False)) for d in (dev, "cpu")}
+    c32 = sc["cpu"]
+    c64 = dataclasses.replace(c32, lights=to_float64(c32.lights), quad=to_float64(c32.quad),
+                              world_center=c32.world_center.double())
+    r = np.random.RandomState(11)
+    n = 1 << 16
+    lt = r.randint(0, 8, n)
+    p_ref = (r.rand(n, 3) * np.array([1.0, 1.0, -1.0])).astype(np.float32)
+    u2 = r.rand(n, 2).astype(np.float32)
+    p_hit = (r.rand(n, 3) * np.array([1.0, 1.0, -1.0])).astype(np.float32)
+    ng = r.randn(n, 3).astype(np.float32)
+    ng /= np.linalg.norm(ng, axis=-1, keepdims=True)
+
+    def evaluate(s, d, pr, uu, ph, nn):
+        T = lambda a: torch.as_tensor(a, device=d)   # noqa: E731
+        ls = lightsmod.sample_li(s.lights, s, T(lt), T(pr), T(uu), s.world_radius)
+        ls["pdf_li_area_scene"] = lightsmod.pdf_li_area_scene(s.lights, s, T(lt), T(pr),
+                                                              T(ph), T(nn))
+        return {k: v.cpu() for k, v in ls.items()}
+
+    def outside(a, b):
+        if a.dtype == torch.bool:
+            off = a != b
+        else:
+            off = ~torch.isclose(a.double(), b.double(), rtol=1e-4, atol=1e-6)
+        return off.reshape(n, -1).any(-1)
+
+    inputs = (p_ref, u2, p_hit, ng)
+    g = evaluate(sc[dev], dev, *inputs)
+    c = evaluate(c32, "cpu", *inputs)
+    ref = evaluate(c64, "cpu", *(a.astype(np.float64) for a in inputs))
+    ill = {k: outside(c[k], ref[k]) for k in c}
+    rp = np.random.RandomState(5)
+    for _ in range(4):
+        moved = [(a * (1.0 + rp.uniform(-4, 4, a.shape) * 2.0 ** -24)).astype(np.float32)
+                 for a in inputs]
+        moved[1] = np.clip(moved[1], 0.0, np.float32(1.0 - 2.0 ** -24))
+        cm = evaluate(c32, "cpu", *moved)
+        for k in ill:
+            ill[k] |= outside(cm[k], ref[k])
+    bad, off_all, off_well, n_ill = [], {}, {}, {}
+    for k in g:
+        off = outside(g[k], c[k])
+        off_all[k], n_ill[k] = int(off.sum()), int(ill[k].sum())
+        off_well[k] = int((off & ~ill[k]).sum())
+        if off_well[k]:
+            bad.append(k)
+    kinds = sorted(set(c32.lights.kinds_present))
+    sd_g = distrib.build_spatial(sc[dev], sc[dev].lights)
+    sd_c = distrib.build_spatial(c32, c32.lights)
+    sp_ok = torch.allclose(sd_g.grid_cdf.cpu(), sd_c.grid_cdf, rtol=1e-4, atol=1e-6)
+    sp_err = float((sd_g.grid_cdf.cpu() - sd_c.grid_cdf).abs().max())
+    log("lights", kinds=kinds, lanes=n, ill_conditioned_lanes=n_ill,
+        lanes_outside_tol=off_all, outside_tol_well_conditioned=off_well, mismatched=bad,
+        spatial_grid=tuple(sd_g.grid_cdf.shape), spatial_max_abs_err=f"{sp_err:.3e}",
+        passed=not bad and sp_ok)
+    if bad or not sp_ok or kinds != list(range(8)):
+        fail(f"lights: the card disagrees with the CPU in {bad}, spatial {sp_ok}")
+
+
+def cornell_phases(kern, clmod, scenemod, driver, direct, path, smp, dev, tile):
+    """Phases 8–10, the Cornell box of the baseline configs: its
+    one-cluster wavefronts through the three tracing kernels against
+    their plain versions; config 1 (direct, 64×64, 4 spp) for the point,
+    area and env lights; config 2 (path depth 5, specular spheres,
+    256×256, 64 spp); before each config's timed frames, the tracers on
+    every wavefront it traces (config 2: its first batch), every tile
+    against the plain versions. Returns {path tag: kernel launches}."""
+    import numpy as np
+    import torch
+    from pbrt_tpu_torch import scenes as scenes_mod
+    from pbrt_tpu_torch.scenes import CORNELL_RES, CORNELL_SPP, CORNELL_SPP_BATCH
+    kernels = {"coverage": kern.coverage, "closest": kern.closest,
+               "occluded": kern.occluded}
+
+    def hold_sent(tag, scene, run, want):
+        """The tracers on every wavefront that run() sends through
+        geom.cluster, each against its plain version on every tile; `want`
+        the counts of closest-hit and any-hit wavefronts expected."""
+        t0 = time.perf_counter()
+        held = check_sent(kern, clmod, scene.clusters, sent_wavefronts(clmod, run), tile, tag)
+        kinds = {k: sum(1 for h in held if h[0] == k) for k in ("closest", "occluded")}
+        log(f"{tag}_wavefronts", held=held, seconds=f"{time.perf_counter() - t0:.2f}",
+            all_tiles_equal=True)
+        if kinds != want:
+            fail(f"{tag}: traced {kinds} wavefronts, expected {want}")
+
+    # 8. the tracers on the C = 1 wavefronts, bit for bit
+    scene = scenes_mod.cornell_spheres(False, "area", dev)
+    cs = scene.clusters
+    log("cornell_scene", triangles=scene.tri.count, quadrics=scene.quad.count,
+        clusters=cs.n_clusters, cpad=cs.bounds.shape[1], world_radius=scene.world_radius)
+    if cs.n_clusters != 1:
+        fail(f"the Cornell box should make one cluster, not {cs.n_clusters}")
+    res = CORNELL_RES
+    cam = scenes_mod.cornell_camera((res, res), dev)
+    cfg = driver.RenderConfig(width=res, height=res, spp=1,
+                              sampler=smp.SamplerConfig(kind="zerotwo", spp=1))
+    pid, sid = driver.lane_ids(cfg, 0, 1, dev)
+    o, d, _, _ = driver.camera_rays(cam, cfg, pid.reshape(-1), sid.reshape(-1))
+    n = o.shape[0]
+    t_min = torch.full((n,), 1e-4, device=dev)
+    t_max = torch.full((n,), float("inf"), device=dev)
+    _, rays_p, _ = clmod.prepare(cs, o, d, t_min, t_max, tile)
+    check_coverage(kern, cs, rays_p, tile, "cornell_primary")
+    check_closest(kern, clmod, cs, rays_p, None, tile, "cornell_primary")
+    hit = scenemod.intersect(scene, o, d)
+    ob, db, tminb, tmaxb, flag = bounce_wavefront(scene, o, d, hit)
+    _, rays_b, flag_s = clmod.prepare(cs, ob, db, tminb, tmaxb, tile, flag)
+    check_coverage(kern, cs, rays_b, tile, "cornell_fused_bounce")
+    check_closest(kern, clmod, cs, rays_b, flag_s, tile, "cornell_fused_bounce")
+    sent = any_hit_queries(sent_wavefronts(clmod, lambda: driver.render_lanes(
+        scene, cam, cfg, direct.make_li(cfg, "one"), pid, sid)))
+    if len(sent) != 1:
+        fail(f"Cornell direct lighting sent {len(sent)} any-hit queries, expected 1")
+    check_coverage(kern, cs, clmod.prepare(cs, *sent[0], tile)[1], tile, "cornell_shadow")
+    check_occluded(kern, clmod, cs, *sent[0], tile, "cornell_shadow")
+    torch.cuda.synchronize()
+
+    by_path = {}
+    # 9. config 1: direct lighting, 64×64, 4 spp, each light variant
+    for light in ("point", "area", "env"):
+        t0 = time.perf_counter()
+        sg = scenes_mod.cornell_spheres(False, light, dev)
+        sc = scenes_mod.cornell_spheres(False, light, "cpu")
+        c1 = driver.RenderConfig(width=64, height=64, spp=4,
+                                 sampler=smp.SamplerConfig(kind="random", spp=4))
+        li = direct.make_li(c1, "one", return_stats=True)
+        cam_g = scenes_mod.cornell_camera((64, 64), dev)
+        hold_sent(f"cornell_config1_{light}", sg, lambda: driver.render(sg, cam_g, c1, li),
+                  {"closest": 2, "occluded": 1})
+        (img, stats), ms, launches = timed_frames(
+            lambda: driver.render(sg, cam_g, c1, li), kernels, 3)
+        img = img.cpu().numpy()
+        ref = driver.render(sc, scenes_mod.cornell_camera((64, 64), "cpu"), c1,
+                            direct.make_li(c1, "one")).numpy()
+        frac, mdiff, ok = pixel_check(img, ref)
+        rays = float(stats["rays_traced"])
+        tag = f"cornell_config1_{light}"
+        by_path[tag] = launches
+        per_frame = {k: v // 3 for k, v in launches.items()}
+        log(tag, resolution="64x64", spp=4, integrator="direct", frame_ms=ms,
+            mrays_per_s=f"{rays * 3 / sum(ms) / 1e3:.3f}", rays_per_frame=rays,
+            launches_per_frame=per_frame, pixels_within_tol=f"{frac:.4f}",
+            mean_diff=f"{mdiff:.3e}", mean=f"{img.mean():.6f}", nan=int(np.isnan(img).sum()),
+            seconds=f"{time.perf_counter() - t0:.2f}", passed=ok)
+        if not ok or not np.isfinite(img).all():
+            fail(f"{tag}: the render through the kernels disagrees with the plain versions")
+        if launches != {"coverage": 9, "closest": 6, "occluded": 3}:
+            fail(f"{tag}: launches over 3 frames {launches}, expected 3/2/1 a frame")
+
+    # 10. config 2: path depth 5, mirror and glass, 256×256 at 64 spp
+    t0 = time.perf_counter()
+    sg = scenes_mod.cornell_spheres(True, "area", dev)
+    cam2 = scenes_mod.cornell_camera((res, res), dev)
+    c2 = driver.RenderConfig(width=res, height=res, spp=CORNELL_SPP, max_depth=5,
+                             sampler=smp.SamplerConfig(kind="zerotwo", spp=CORNELL_SPP),
+                             samples_per_batch=CORNELL_SPP_BATCH)
+    li = path.make_li(c2, camera=cam2, compact_from=1, return_stats=True)
+    hold_sent("cornell_config2_batch0", sg,
+              lambda: driver.render_batch(sg, cam2, c2, li, 0, CORNELL_SPP_BATCH),
+              {"closest": 6, "occluded": 0})
+    (img, stats), ms, launches = timed_frames(lambda: driver.render(sg, cam2, c2, li),
+                                              kernels, 2)
+    rays = float(stats["rays_traced"])
+    n_nan = int(torch.isnan(img).sum())
+    batches = CORNELL_SPP // CORNELL_SPP_BATCH
+    by_path["cornell_config2"] = launches
+    per_frame = {k: v // 2 for k, v in launches.items()}
+    log("cornell_config2", resolution=f"{res}x{res}", spp=CORNELL_SPP, depth=5,
+        integrator="path",
+        samples_per_batch=CORNELL_SPP_BATCH, frame_ms=ms,
+        mrays_per_s=f"{rays * 2 / sum(ms) / 1e3:.3f}", rays_per_frame=rays,
+        launches_per_frame=per_frame, image_mean=f"{float(img.mean()):.6f}",
+        nan=n_nan, seconds=f"{time.perf_counter() - t0:.2f}")
+    if n_nan or not bool(torch.isfinite(img).all()) or tuple(img.shape) != (res, res, 3):
+        fail("cornell_config2: image is not finite")
+    if per_frame != {"coverage": 6 * batches, "closest": 6 * batches, "occluded": 0}:
+        fail(f"cornell_config2: launches a frame {per_frame}")
+    small = driver.RenderConfig(width=16, height=16, spp=4, max_depth=5,
+                                sampler=smp.SamplerConfig(kind="zerotwo", spp=4))
+    imgs = [driver.render(scenes_mod.cornell_spheres(True, "area", d),
+                          scenes_mod.cornell_camera((16, 16), d), small,
+                          path.make_li(small, camera=scenes_mod.cornell_camera((16, 16), d),
+                                       compact_from=1)).cpu().numpy() for d in (dev, "cpu")]
+    frac, mdiff, ok = pixel_check(*imgs)
+    log("cornell_config2_16x16", pixels_within_tol=f"{frac:.4f}", mean_diff=f"{mdiff:.3e}",
+        mean=f"{imgs[0].mean():.6f}", passed=ok)
+    if not ok:
+        fail("cornell_config2_16x16: the render through the kernels disagrees with the plain "
+             "versions")
+    return by_path
+
+
 def main():
     import numpy as np
     import torch
@@ -478,13 +820,7 @@ def main():
     cfg = driver.RenderConfig(width=res, height=res, spp=1, max_depth=5,
                               sampler=smp.SamplerConfig(kind="zerotwo", spp=1))
     pid, sid = driver.lane_ids(cfg, 0, 1, dev)
-    # the int64 uint32 emulation must give the same streams on the card
-    same = all(torch.equal(fn(cfg.sampler, pid, sid + 977, dim).cpu(),
-                           fn(cfg.sampler, pid.cpu(), sid.cpu() + 977, dim))
-               for fn in (smp.sample_1d, smp.sample_2d) for dim in (0, 5, 9000))
-    log("sampler", card_equals_cpu=same)
-    if not same:
-        fail("sampler streams differ between the card and the CPU")
+    check_samplers(smp, pid.reshape(-1)[::4], dev)    # every fourth lane: 65,536
     o, d, _, _ = driver.camera_rays(cam, cfg, pid.reshape(-1), sid.reshape(-1))
     n = o.shape[0]
     t_min = torch.full((n,), 1e-4, device=dev)
@@ -500,10 +836,10 @@ def main():
     torch.cuda.synchronize()
 
     # 4b. the any-hit kernel on the wavefronts direct.li and ao.li send
-    sent_d = sent_wavefronts(clmod, lambda: driver.render_lanes(
-        scene, cam, cfg, direct.make_li(cfg, "one"), pid, sid))
-    sent_a = sent_wavefronts(clmod, lambda: driver.render_lanes(
-        scene, cam, cfg, ao.make_li(cfg, True, 4), pid, sid))
+    sent_d = any_hit_queries(sent_wavefronts(clmod, lambda: driver.render_lanes(
+        scene, cam, cfg, direct.make_li(cfg, "one"), pid, sid)))
+    sent_a = any_hit_queries(sent_wavefronts(clmod, lambda: driver.render_lanes(
+        scene, cam, cfg, ao.make_li(cfg, True, 4), pid, sid)))
     if (len(sent_d), len(sent_a)) != (1, 4):
         fail(f"any-hit queries sent: direct {len(sent_d)}, AO {len(sent_a)}; expected 1, 4")
     cov_d = check_coverage(kern, cs, clmod.prepare(cs, *sent_d[0], tile)[1], tile,
@@ -575,6 +911,12 @@ def main():
         want = {k: v * frames for k, v in per_frame.items()}
         if launches != want:
             fail(f"{tag}: expected launches {want} over {frames} frames, got {launches}")
+
+    # 8-10. the Cornell box; 11. the light table on the card
+    from pbrt_tpu_torch import scenes as scenes_mod
+    from pbrt_tpu_torch.lights import distrib, lights as lightsmod
+    by_path.update(cornell_phases(kern, clmod, scenemod, driver, direct, path, smp, dev, tile))
+    check_lights(scenes_mod, lightsmod, distrib, dev)
 
     # 7. the probes, their launches counted over this phase
     probes.compact.launches = probes.overhead.launches = 0

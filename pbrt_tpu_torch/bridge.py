@@ -1,8 +1,9 @@
 """Scene data carried across from numpy.
 
 `scene_from_numpy` takes a scene as plain numpy arrays — the JAX
-package's Scene, ClusterSet, MaterialTable, TextureTable and LightTable
-fields flattened to dicts by the caller — and returns the port's Scene,
+package's Scene, QuadricSoA, ClusterSet, MaterialTable, TextureTable,
+LightTable and SpatialLightDistribution fields flattened to dicts by the
+caller — and returns the port's Scene,
 so both packages can render the very same scene. `camera_from_numpy`
 does the same for a perspective camera. Nothing here imports the JAX
 package."""
@@ -16,7 +17,8 @@ from .cameras.cameras import PerspectiveCamera
 from .core import transform as tf
 from .geom import cluster as clmod
 from .geom.scene import Scene
-from .geom.types import triangles_from_numpy
+from .geom.types import quadrics_from_numpy, triangles_from_numpy
+from .lights.distrib import spatial_from_numpy
 from .lights.lights import lights_from_numpy
 from .shade.materials import materials_from_numpy
 from .shade.textures import textures_from_numpy
@@ -37,33 +39,39 @@ def _clusters(c, device):
 
 
 def scene_from_numpy(tree, device=None, tile=clmod.TILE):
-    """tree: dict with "tri", "clusters" (or None), "materials",
-    "lights", "textures" (or None) sub-dicts of numpy arrays, plus
+    """tree: dict with "tri", "quad" (or None when "quad_count" is 0),
+    "clusters" (or None), "materials", "lights", "textures" (or None)
+    and "light_distrib" (or None) sub-dicts of numpy arrays, plus
     "world_center", "world_radius", "quad_count" and "instance_count".
-    Quadrics and instances are not ported: a scene with either is
-    refused, and so is a tree that does not state both counts (its
-    quadrics or instances would otherwise go missing without a word)."""
+    Instances are not ported: a scene with any is refused, and so is a
+    tree that does not state both counts, or that states quadrics and
+    leaves out their arrays (they would go missing without a word)."""
     device = resolve_device(device)
     t = tree["tri"]
-    if int(tree["lights"].get("env_index", -1)) >= 0:
-        raise NotImplementedError("infinite lights are not ported yet")
     missing = [k for k in ("quad_count", "instance_count") if k not in tree]
     if missing:
-        raise NotImplementedError(f"the scene tree does not state {missing}: quadrics and "
-                                  "instances are not ported, so a scene must show it has none")
-    if int(tree["quad_count"]) or int(tree["instance_count"]):
-        raise NotImplementedError("quadrics and instances are not ported yet")
+        raise NotImplementedError(f"the scene tree does not state {missing}: a scene "
+                                  "must show its quadrics and that it has no instances")
+    if int(tree["instance_count"]):
+        raise NotImplementedError("instances are not ported yet")
+    quad = tree.get("quad")
+    if int(tree["quad_count"]) != (0 if quad is None else len(quad["kind"])):
+        raise NotImplementedError(f"the tree states {int(tree['quad_count'])} quadrics "
+                                  "and carries the arrays of "
+                                  f"{0 if quad is None else len(quad['kind'])}")
     return Scene(
         tri=triangles_from_numpy(t["positions"], t["indices"], t["normals"], t["uvs"],
                                  t["has_normals"], t["material_id"], t["light_id"], device),
+        quad=quadrics_from_numpy(quad, device),
         clusters=_clusters(tree["clusters"], device) if tree.get("clusters") else None,
         materials=materials_from_numpy(tree["materials"], device),
         lights=lights_from_numpy(tree["lights"], device),
         textures=(textures_from_numpy(tree["textures"], device)
                   if tree.get("textures") else None),
+        light_distrib=spatial_from_numpy(tree.get("light_distrib"), device),
         world_center=torch.as_tensor(np.asarray(tree["world_center"], np.float32),
                                      device=device),
-        world_radius=float(tree["world_radius"]),
+        world_radius=float(np.float32(tree["world_radius"])),
         tile=tile)
 
 

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from .types import f32
+from .types import PI, f32, safe_sqrt
 
 
 def dot(a, b):
@@ -40,6 +40,28 @@ def face_forward(n, v):
 
 def reflect(wo, n):
     return -wo + 2.0 * dot(wo, n)[..., None] * n
+
+
+def refract(wi, n, eta):
+    """Refract wi (pointing away from the surface) about n with relative
+    IOR eta = eta_i / eta_t. Returns (ok, wt)."""
+    cos_i = dot(n, wi)
+    sin2_t = eta * eta * torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+    cos_t = safe_sqrt(1.0 - sin2_t)
+    return sin2_t < 1.0, eta[..., None] * (-wi) + (eta * cos_i - cos_t)[..., None] * n
+
+
+def spherical_direction(sin_theta, cos_theta, phi):
+    return torch.stack([sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta], -1)
+
+
+def spherical_theta(v):
+    return torch.arccos(torch.clamp(v[..., 2], -1.0, 1.0))
+
+
+def spherical_phi(v):
+    p = torch.atan2(v[..., 1], v[..., 0])
+    return torch.where(p < 0.0, p + 2.0 * PI, p)
 
 
 def coordinate_system(v1):

@@ -1,4 +1,5 @@
-"""Triangle pool and hit record (counterpart of pbrt_tpu/geom/types.py)."""
+"""Triangle and quadric pools and the hit record (counterpart of
+pbrt_tpu/geom/types.py)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -59,6 +60,50 @@ def triangles_from_numpy(pos, idx, nrm, uvs, has_ns, mat, light, device):
                        t(light), t(rec))
 
 
+QUAD_SPHERE = 0
+QUAD_DISK = 1
+QUAD_CYLINDER = 2
+QUAD_CONE = 3
+QUAD_PARABOLOID = 4
+QUAD_HYPERBOLOID = 5
+
+
+@dataclass
+class QuadricSoA:
+    """Spheres and the other quadrics, each with its object↔world
+    transforms, so partial quadrics (z / φ clipping) stay exact.
+    params: 0 radius, 1 z_min, 2 z_max, 3 phi_max, 4 and 5 extras (disk
+    height and inner radius, cone height, hyperboloid a and c)."""
+    kind: torch.Tensor          # (Q,) int64
+    obj_to_world: torch.Tensor  # (Q, 4, 4)
+    world_to_obj: torch.Tensor  # (Q, 4, 4)
+    params: torch.Tensor        # (Q, 6)
+    material_id: torch.Tensor   # (Q,) int64
+    light_id: torch.Tensor      # (Q,) int64
+    kinds_present: tuple = ()   # the kinds the intersection evaluates
+
+    @property
+    def count(self):
+        return self.kind.shape[0]
+
+
+def quadrics_from_numpy(arrs, device):
+    """QuadricSoA from numpy columns kind, obj_to_world, world_to_obj,
+    params, material_id, light_id (the JAX package's layout); None (or
+    no rows) gives the empty pool."""
+    if arrs is None:
+        arrs = dict(kind=np.zeros(0), obj_to_world=np.zeros((0, 4, 4)),
+                    world_to_obj=np.zeros((0, 4, 4)), params=np.zeros((0, 6)),
+                    material_id=np.zeros(0), light_id=np.zeros(0))
+    kind = np.asarray(arrs["kind"], np.int64)
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), device=device).to(dt)  # noqa: E731
+    return QuadricSoA(kind=t(kind, torch.int64), obj_to_world=t(arrs["obj_to_world"]),
+                      world_to_obj=t(arrs["world_to_obj"]), params=t(arrs["params"]),
+                      material_id=t(arrs["material_id"], torch.int64),
+                      light_id=t(arrs["light_id"], torch.int64),
+                      kinds_present=tuple(sorted(set(kind.tolist()))))
+
+
 @dataclass
 class Hit:
     """Wavefront hit record (SoA SurfaceInteraction)."""
@@ -72,6 +117,6 @@ class Hit:
     wo: torch.Tensor           # (N, 3) -ray.d
     material_id: torch.Tensor  # (N,) int64
     light_id: torch.Tensor     # (N,) int64
-    prim_kind: torch.Tensor    # (N,) int64: 0 triangle
+    prim_kind: torch.Tensor    # (N,) int64: 0 triangle, 1 quadric
     prim_id: torch.Tensor      # (N,) int64
     uv_scale: torch.Tensor     # (N,) uv units per world unit at the hit

@@ -13,8 +13,11 @@ from ..core.sampling import power_heuristic
 from ..core.spectrum import luminance
 from ..core.types import SHADOW_EPS, f32
 from ..geom import scene as scenemod
+from ..lights import distrib
 from ..lights import lights as lightsmod
 from ..shade import materials as matmod
+
+STRATEGIES = ("uniform", "power", "spatial")
 
 
 class Frame(NamedTuple):
@@ -52,19 +55,41 @@ def select_light_uniform(lights, u):
     return idx, torch.full_like(u, 1.0 / n)
 
 
+def _strategy(scene, strategy):
+    """The strategy that runs: "spatial" needs the scene's grid and
+    falls back to "uniform" without one, as in the reference."""
+    if strategy not in STRATEGIES:
+        raise ValueError(f"light strategy {strategy!r}: expected one of {STRATEGIES}")
+    if strategy == "spatial" and scene.light_distrib is None:
+        return "uniform"
+    return strategy
+
+
 def select_light(scene, strategy, p, u):
-    """Uniform light selection. Returns (light index, pmf)."""
-    if strategy != "uniform":
-        raise NotImplementedError(f"light strategy {strategy!r} is not ported yet")
+    """A light per lane by strategy "uniform", "power" or "spatial".
+    Returns (light index, pmf)."""
+    strategy = _strategy(scene, strategy)
+    if strategy == "power":
+        idx, pmf, _ = scene.light_power.sample_discrete(u)
+        return idx, pmf
+    if strategy == "spatial":
+        return distrib.spatial_lookup_sample(scene.light_distrib, p, u)
     return select_light_uniform(scene.lights, u)
 
 
 def select_light_pmf(scene, strategy, p, light_id):
     """pmf the selection strategy gives `light_id` at p."""
-    if strategy != "uniform":
-        raise NotImplementedError(f"light strategy {strategy!r} is not ported yet")
-    return torch.full(light_id.shape, 1.0 / max(int(scene.lights.count), 1),
-                      dtype=torch.float32, device=light_id.device)
+    strategy = _strategy(scene, strategy)
+    nl = max(int(scene.lights.count), 1)
+    if strategy == "power":
+        dist = scene.light_power
+        return dist.func[torch.clamp(light_id, min=0)] / torch.clamp(dist.func_int * nl,
+                                                                     min=f32(1e-20))
+    if strategy == "spatial":
+        func = scene.light_distrib.grid_func[distrib.voxel_of(scene.light_distrib, p)]
+        return torch.gather(func, -1, torch.clamp(light_id, min=0)[..., None])[..., 0] \
+            / torch.clamp(func.sum(-1), min=f32(1e-20))
+    return torch.full(light_id.shape, 1.0 / nl, dtype=torch.float32, device=light_id.device)
 
 
 def shadow_ray(ls, p, ng):
@@ -82,7 +107,7 @@ def nee_light_defer(scene, lights, lp, kinds_present, frame, p, ns, ng, wo, lt,
     trace. Returns (contrib, o_sh, wi, tmax_sh, usable, ls); the caller
     traces the shadow ray (fused into the bounce's extension launch) and
     applies contrib where unoccluded."""
-    ls = lightsmod.sample_li(lights, lt, p, u_light)
+    ls = lightsmod.sample_li(lights, scene, lt, p, u_light, scene.world_radius)
     wi = ls["wi"]
     wo_l = frame.to_local(wo)
     wi_l = frame.to_local(wi)
@@ -122,20 +147,25 @@ def bsdf_ray_used(ls, pdf_b, f_b, spec_b, active):
 
 
 def nee_bsdf_part(scene, lights, ls, lt, p, wi_b, f_b, pdf_b, spec_b, hit_b, active):
-    """BSDF-sampling half of MIS direct lighting given the traced hit.
-    Returns ld_bsdf (N, 3), not divided by the selection pmf. The
-    reference's escaped-ray branch (lights.env_index >= 0: env_radiance,
-    env_pdf_li) comes with infinite lights; lights_from_numpy refuses
-    them, so only an area light can be hit here."""
+    """BSDF-sampling half of MIS direct lighting given the traced hit:
+    the light's share where the BSDF ray hit that area light, or escaped
+    while the sampled light is the infinite one. Returns ld_bsdf (N, 3),
+    not divided by the selection pmf."""
     try_bsdf = bsdf_ray_used(ls, pdf_b, f_b, spec_b, active)
     same_light = hit_b.valid & (hit_b.light_id == lt)
     li_surf = lightsmod.area_light_radiance(lights, hit_b.light_id, hit_b.ng, -wi_b)
-    pdf_light_b = lightsmod.pdf_li_area_scene(lights, lt, p, hit_b.p, hit_b.ng)
+    pdf_light_b = lightsmod.pdf_li_area_scene(lights, scene, lt, p, hit_b.p, hit_b.ng)
     li_b = torch.where(same_light[..., None], li_surf, 0.0)
     pdf_light_b = torch.where(same_light, pdf_light_b, 0.0)
+    got_light = same_light
+    if lights.env_index >= 0:
+        env = ~hit_b.valid & (lt == lights.env_index)
+        li_b = torch.where(env[..., None], lightsmod.env_radiance(lights, wi_b), li_b)
+        pdf_light_b = torch.where(env, lightsmod.env_pdf_li(lights, wi_b), pdf_light_b)
+        got_light = env | same_light
     w_b = power_heuristic(1.0, pdf_b, 1.0, pdf_light_b)
     contrib_b = f_b * li_b * (w_b / torch.clamp(pdf_b, min=f32(1e-12)))[..., None]
-    ok_b = try_bsdf & same_light & (pdf_light_b > 0.0)
+    ok_b = try_bsdf & got_light & (pdf_light_b > 0.0)
     return torch.where(ok_b[..., None], contrib_b, 0.0)
 
 

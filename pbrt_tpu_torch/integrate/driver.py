@@ -73,11 +73,17 @@ def render_batch(scene, camera, cfg: RenderConfig, li_fn, sample_lo, sample_hi):
 
 
 def render(scene, camera, cfg: RenderConfig, li_fn):
-    """Full render → (H, W, 3) image."""
+    """Full render → (H, W, 3) image. With an li_fn that returns
+    (radiance, stats), returns (image, {"rays_traced": summed over the
+    sample batches})."""
     batch = cfg.samples_per_batch or cfg.spp
-    rads, wts = [], []
+    rads, wts, rays = [], [], None
     for lo in range(0, cfg.spp, batch):
         r, w = render_batch(scene, camera, cfg, li_fn, lo, min(lo + batch, cfg.spp))
+        if isinstance(r, tuple):
+            r, stats = r
+            rays = stats["rays_traced"] if rays is None else rays + stats["rays_traced"]
         rads.append(r)
         wts.append(w)
-    return filmmod.develop(torch.cat(rads), torch.cat(wts), cfg.height, cfg.width)
+    img = filmmod.develop(torch.cat(rads), torch.cat(wts), cfg.height, cfg.width)
+    return img if rays is None else (img, {"rays_traced": rays})

@@ -74,15 +74,20 @@ def _gather_packed(order, arrays):
 
 
 def _emission_pickup(scene, lights, cfg, hit, d, prev_p, prev_pdf, prev_spec, counts):
-    """Radiance of the emitter a ray hit (or escaped to), MIS-weighted
-    against the NEE strategy that could have sampled it."""
+    """Radiance of the emitter a ray hit (or the infinite light it
+    escaped to), MIS-weighted against the NEE strategy that could have
+    sampled it: selection pmf × solid-angle pdf."""
     le_hit = lightsmod.area_light_radiance(lights, hit.light_id, hit.ng, -d)
     le_env = lightsmod.env_radiance(lights, d)
     le = torch.where(hit.valid[..., None], le_hit, le_env)
     got_area = hit.valid & (hit.light_id >= 0)
-    pdf_area = lightsmod.pdf_li_area_scene(lights, hit.light_id, prev_p, hit.p, hit.ng)
+    pdf_area = lightsmod.pdf_li_area_scene(lights, scene, hit.light_id, prev_p, hit.p, hit.ng)
     sel_area = common.select_light_pmf(scene, cfg.light_strategy, prev_p, hit.light_id)
     pdf_nee = torch.where(got_area, pdf_area * sel_area, 0.0)
+    if lights.env_index >= 0:
+        env_sel = common.select_light_pmf(scene, cfg.light_strategy, prev_p,
+                                          torch.full_like(hit.light_id, lights.env_index))
+        pdf_nee = torch.where(~hit.valid, lightsmod.env_pdf_li(lights, d) * env_sel, pdf_nee)
     w = torch.where(prev_spec, 1.0, power_heuristic(1.0, prev_pdf, 1.0, pdf_nee))
     return torch.where(counts[..., None], le * w[..., None], 0.0)
 

@@ -1,10 +1,16 @@
-"""The bench scene, built natively: the textured bunny stand-in (an
-81,920-triangle displaced icosphere at subdivisions=6) in an open box with
-a wood-textured matte floor, a plastic blob and one quad area light
-(counterpart of scenes/bunny.mesh_scene with use_bvh=True, and of the
-parts of pbrt_tpu.api.SceneBuilder.build and geom.cluster.build_clusters
-this scene uses)."""
+"""Scenes built natively, without the JAX package: the bench scene (the
+textured bunny stand-in, an 81,920-triangle displaced icosphere at
+subdivisions=6, in an open box with a wood-textured matte floor, a
+plastic blob and one quad area light; counterpart of
+scenes/bunny.mesh_scene with use_bvh=True) and the Cornell box with two
+spheres of the baseline configs (counterpart of
+scenes/cornell.cornell_spheres), through the parts of
+pbrt_tpu.api.SceneBuilder.build and geom.cluster.build_clusters they use;
+the Cornell box with a table of all eight light kinds, and config 2's
+published size."""
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -14,11 +20,18 @@ from .cameras import cameras as cammod
 from .core import transform as tf
 from .geom import cluster as clmod
 from .geom.meshio import bench_blob
-from .geom.scene import Scene
-from .geom.types import triangles_from_numpy
-from .lights.lights import build_area_lights
+from .geom.scene import Scene, world_bounds
+from .geom.types import (QUAD_CONE, QUAD_CYLINDER, QUAD_DISK, QUAD_HYPERBOLOID,
+                         QUAD_PARABOLOID, QUAD_SPHERE, quadrics_from_numpy,
+                         triangles_from_numpy)
+from .lights import lights as lightsmod
 from .shade import materials as matmod
 from .shade.textures import build_image_textures
+
+# Baseline config 2 (BASELINE.json) at its published size: the Cornell box
+# with a mirror and a glass sphere, path at depth 5, 256×256 at 64 spp,
+# traced in wavefronts of CORNELL_SPP_BATCH samples (1,048,576 lanes)
+CORNELL_RES, CORNELL_SPP, CORNELL_SPP_BATCH = 256, 64, 16
 
 
 def wood_image(size=512):
@@ -32,19 +45,32 @@ def wood_image(size=512):
 
 
 class _Builder:
-    """The slice of SceneBuilder the bench scene uses: meshes, quads,
-    material rows, one image texture list and triangle area lights."""
+    """The parts of SceneBuilder the native scenes use: meshes and quads,
+    the six quadrics, material rows, one image texture list, and area
+    quad, point and infinite lights, built into the port's Scene."""
 
     def __init__(self):
         self.verts, self.normals, self.uvs, self.tris = [], [], [], []
         self.mat, self.light, self.has_ns = [], [], []
+        self.quads = []       # (kind, obj_to_world, params, material, light)
         self.materials, self.lights, self.images = [], [], []
+        self.env_image = self.env_to_world = None
         self.vbase = 0
         self.tbase = 0
 
     def material(self, **kw):
         self.materials.append(kw)
         return len(self.materials) - 1
+
+    def matte(self, kd, sigma=0.0):
+        return self.material(kind=matmod.MAT_MATTE, kd=kd, sigma=sigma)
+
+    def mirror(self, kr=0.9):
+        return self.material(kind=matmod.MAT_MIRROR, kr=kr)
+
+    def glass(self, kr=1.0, kt=1.0, eta=1.5, roughness=0.0, remap=True):
+        return self.material(kind=matmod.MAT_GLASS, kr=kr, kt=kt, eta=eta,
+                             roughness=(roughness, roughness), remap_roughness=remap)
 
     def image_texture(self, img, su, sv):
         self.images.append((img, su, sv))
@@ -72,38 +98,96 @@ class _Builder:
         return self.add_mesh(np.array([p0, p1, p2, p3], np.float32),
                              [[0, 1, 2], [0, 2, 3]], material, uvs=uv, light=light)
 
-    def area_light_quad(self, p0, p1, p2, p3, radiance):
-        material = self.material(kind=matmod.MAT_MATTE, kd=0.0, sigma=0.0)
+    def _quadric(self, kind, o2w, params, material, light=-1):
+        self.quads.append((kind, np.asarray(o2w, np.float32),
+                           np.asarray(params, np.float32), material, light))
+        return len(self.quads) - 1
+
+    def add_sphere(self, center, radius, material, light=-1, z_min=None, z_max=None,
+                   phi_max=2 * np.pi):
+        o2w = np.eye(4, dtype=np.float32)
+        o2w[:3, 3] = center
+        r = float(radius)
+        return self._quadric(QUAD_SPHERE, o2w, [r, -r if z_min is None else z_min,
+                                                r if z_max is None else z_max, phi_max, 0, 0],
+                             material, light)
+
+    def add_disk(self, o2w, radius, material, height=0.0, inner_radius=0.0,
+                 phi_max=2 * np.pi, light=-1):
+        return self._quadric(QUAD_DISK, o2w, [radius, 0, 0, phi_max, height, inner_radius],
+                             material, light)
+
+    def add_cylinder(self, o2w, radius, z_min, z_max, material, phi_max=2 * np.pi, light=-1):
+        return self._quadric(QUAD_CYLINDER, o2w, [radius, z_min, z_max, phi_max, 0, 0],
+                             material, light)
+
+    def add_cone(self, o2w, radius, height, material, phi_max=2 * np.pi, light=-1):
+        return self._quadric(QUAD_CONE, o2w, [radius, 0, height, phi_max, height, 0],
+                             material, light)
+
+    def add_paraboloid(self, o2w, radius, z_min, z_max, material, phi_max=2 * np.pi,
+                       light=-1):
+        return self._quadric(QUAD_PARABOLOID, o2w, [radius, z_min, z_max, phi_max, 0, 0],
+                             material, light)
+
+    def add_hyperboloid(self, o2w, a, c, z_min, z_max, material, phi_max=2 * np.pi,
+                        light=-1):
+        return self._quadric(QUAD_HYPERBOLOID, o2w,
+                             [max(abs(z_min), abs(z_max)), z_min, z_max, phi_max, a, c],
+                             material, light)
+
+    def area_light_quad(self, p0, p1, p2, p3, radiance, two_sided=False):
+        material = self.matte(kd=0.0)
         light_id = len(self.lights)
         t0, t1 = self.add_quad(p0, p1, p2, p3, material, light=light_id)
-        self.lights.append(dict(tri_ids=list(range(t0, t1)), L=radiance))
+        self.lights.append(dict(kind=lightsmod.LIGHT_AREA_TRI, tri_ids=list(range(t0, t1)),
+                                L=radiance, two_sided=two_sided))
         return light_id
 
-    def build(self, device, tile):
+    def point_light(self, p, intensity):
+        self.lights.append(dict(kind=lightsmod.LIGHT_POINT, p=p, I=intensity))
+        return len(self.lights) - 1
+
+    def infinite_light(self, radiance=1.0, image=None, env_to_world=None):
+        self.lights.append(dict(kind=lightsmod.LIGHT_INFINITE, L=radiance))
+        self.env_image, self.env_to_world = image, env_to_world
+        return len(self.lights) - 1
+
+    def build(self, device, tile, clusters=True):
         pos = np.concatenate(self.verts)
         idx = np.concatenate(self.tris)
         tri = triangles_from_numpy(pos, idx, np.concatenate(self.normals),
                                    np.concatenate(self.uvs), np.concatenate(self.has_ns),
                                    np.concatenate(self.mat), np.concatenate(self.light),
                                    device)
-        lo, hi = pos.min(0), pos.max(0)
-        center = (lo + hi) / 2.0
+        qa = None
+        if self.quads:
+            o2w = np.stack([q[1] for q in self.quads])
+            qa = dict(kind=np.array([q[0] for q in self.quads], np.int64), obj_to_world=o2w,
+                      world_to_obj=np.linalg.inv(o2w),
+                      params=np.stack([q[2] for q in self.quads]),
+                      material_id=np.array([q[3] for q in self.quads], np.int64),
+                      light_id=np.array([q[4] for q in self.quads], np.int64))
+        center, radius = world_bounds(pos, *((qa["params"], qa["obj_to_world"], qa["kind"])
+                                             if qa else ()))
         return Scene(
-            tri=tri,
-            clusters=clmod.build_clusters(pos, idx, device),
+            tri=tri, quad=quadrics_from_numpy(qa, device),
+            clusters=clmod.build_clusters(pos, idx, device) if clusters else None,
             materials=matmod.build_materials(self.materials, device),
-            lights=build_area_lights(self.lights, pos, idx, device),
-            textures=build_image_textures(self.images, device),
-            world_center=torch.as_tensor(center, dtype=torch.float32, device=device),
-            world_radius=float(np.linalg.norm(hi - center)) + 1e-4,
-            tile=tile)
+            lights=lightsmod.build_lights(self.lights, pos, idx,
+                                          None if qa is None else qa["params"],
+                                          self.env_image, self.env_to_world, device=device),
+            textures=build_image_textures(self.images, device) if self.images else None,
+            light_distrib=None,
+            world_center=torch.as_tensor(center, device=device),
+            world_radius=radius, tile=tile)
 
 
 def bench_scene(subdivisions=6, device=None, tile=clmod.TILE):
     """The bench scene on `device` (cuda unless told otherwise)."""
     device = resolve_device(device)
     b = _Builder()
-    white = b.material(kind=matmod.MAT_MATTE, kd=(0.73, 0.73, 0.73), sigma=0.0)
+    white = b.matte(kd=(0.73, 0.73, 0.73))
     wood = b.image_texture(wood_image(), 3.0, 3.0)
     floor_mat = b.material(kind=matmod.MAT_MATTE, kd=(1.0, 1.0, 1.0), kd_tex=wood,
                            sigma=0.0)
@@ -120,6 +204,94 @@ def bench_scene(subdivisions=6, device=None, tile=clmod.TILE):
     b.area_light_quad([c - e, y, -c + e], [c - e, y, -c - e],
                       [c + e, y, -c - e], [c + e, y, -c + e], radiance=(14.0, 14.0, 14.0))
     return b.build(device, tile)
+
+
+def cornell_sky(n_theta=32, n_phi=64):
+    """The Cornell env variant's sky: a bright warm band near the zenith."""
+    th = np.linspace(0, np.pi, n_theta)[:, None] * np.ones((1, n_phi))
+    band = np.exp(-((th - 0.5) ** 2) / 0.18)
+    return np.stack([1.6 * band + 0.25, 1.3 * band + 0.3, 1.0 * band + 0.45],
+                    axis=-1).astype(np.float32)
+
+
+def cornell_spheres(specular=False, light="area", device=None, clusters=True,
+                    tile=clmod.TILE):
+    """The Cornell box in [0,1]^3 with two spheres (the baseline configs
+    1 and 2; counterpart of scenes/cornell.cornell_spheres). specular:
+    a mirror and a glass sphere in place of the matte ones. light:
+    "area" (a ceiling quad), "point", or "env" (no ceiling; the sky of
+    cornell_sky). With `clusters` the triangles run through the cluster
+    tracer (one cluster), else through the brute-force tracers."""
+    b = _Builder()
+    white = b.matte(kd=(0.73, 0.73, 0.73))
+    red = b.matte(kd=(0.65, 0.05, 0.05))
+    green = b.matte(kd=(0.12, 0.45, 0.15))
+    if specular:
+        sph1, sph2 = b.mirror(kr=0.9), b.glass(eta=1.5)
+    else:
+        sph1, sph2 = b.matte(kd=(0.8, 0.6, 0.2)), b.matte(kd=(0.2, 0.4, 0.8))
+    s = 1.0
+    b.add_quad([0, 0, 0], [s, 0, 0], [s, 0, -s], [0, 0, -s], white)       # floor
+    if light != "env":
+        b.add_quad([0, s, 0], [0, s, -s], [s, s, -s], [s, s, 0], white)   # ceiling
+    b.add_quad([0, 0, -s], [s, 0, -s], [s, s, -s], [0, s, -s], white)     # back
+    b.add_quad([0, 0, 0], [0, 0, -s], [0, s, -s], [0, s, 0], red)         # left
+    b.add_quad([s, 0, 0], [s, s, 0], [s, s, -s], [s, 0, -s], green)       # right
+    b.add_sphere([0.3, 0.18, -0.6], 0.18, sph1)
+    b.add_sphere([0.7, 0.15, -0.35], 0.15, sph2)
+    if light == "area":
+        e, c, y = 0.22, s / 2, s - 1e-3
+        b.area_light_quad([c - e, y, -c + e], [c - e, y, -c - e],
+                          [c + e, y, -c - e], [c + e, y, -c + e], radiance=(12.0, 12.0, 12.0))
+    elif light == "env":
+        b.infinite_light(radiance=1.0, image=cornell_sky())
+    elif light == "point":
+        b.point_light([0.5, 0.85, -0.5], intensity=(1.2, 1.2, 1.2))
+    else:
+        raise ValueError(f"light {light!r}: expected 'area', 'point' or 'env'")
+    return b.build(resolve_device(device), tile, clusters)
+
+
+def all_kinds_rows(tri_ids):
+    """Light rows of all eight kinds in the Cornell box: its ceiling quad
+    (triangles tri_ids) and its first sphere as area lights beside a
+    point, a spot, a distant, an infinite, a goniometric and a projection
+    light (build_lights' rows; the JAX package's kind numbers are the
+    same)."""
+    return [dict(kind=lightsmod.LIGHT_POINT, p=(0.5, 0.85, -0.5), I=(1.2, 1.0, 0.8)),
+            dict(kind=lightsmod.LIGHT_SPOT, p=(0.2, 0.9, -0.2), direction=(0.3, -1.0, -0.4),
+                 I=(3.0, 3.0, 3.0), cone_deg=35.0, falloff_deg=20.0),
+            dict(kind=lightsmod.LIGHT_DISTANT, direction=(0.2, 1.0, 0.3), L=(0.8, 0.9, 1.0)),
+            dict(kind=lightsmod.LIGHT_AREA_TRI, tri_ids=list(tri_ids), L=(12.0, 12.0, 12.0)),
+            dict(kind=lightsmod.LIGHT_AREA_SPHERE, quadric_id=0, L=(2.0, 1.5, 1.0)),
+            dict(kind=lightsmod.LIGHT_INFINITE, L=1.0),
+            dict(kind=lightsmod.LIGHT_GONIO, p=(0.8, 0.7, -0.7), I=(0.9, 0.9, 0.9)),
+            dict(kind=lightsmod.LIGHT_PROJECTION, p=(0.5, 0.95, -0.4),
+                 direction=(0.0, -1.0, -0.2), I=(2.0, 2.0, 2.0), fov_deg=50.0)]
+
+
+def gonio_image():
+    """The goniometric and projection lights' image: an 8×16 gradient."""
+    y, x = np.mgrid[0:8, 0:16].astype(np.float32)
+    return np.stack([x / 15.0, y / 7.0, 0.5 + 0.0 * x], -1) + 0.1
+
+
+def with_all_light_kinds(scene):
+    """A Cornell scene with the table of all_kinds_rows in place of its
+    own (the infinite light on cornell_sky, gonio_image for the image
+    lights)."""
+    pos, idx = scene.tri.positions.cpu().numpy(), scene.tri.indices.cpu().numpy()
+    rows = all_kinds_rows(np.nonzero(scene.tri.light_id.cpu().numpy() >= 0)[0])
+    table = lightsmod.build_lights(rows, pos, idx, scene.quad.params.cpu().numpy(),
+                                   cornell_sky(), gonio_image=gonio_image(),
+                                   device=scene.device)
+    return dataclasses.replace(scene, lights=table)
+
+
+def cornell_camera(resolution, device=None):
+    """The Cornell box's perspective camera at resolution (h, w)."""
+    c2w = tf.look_at_np(pos=[0.5, 0.5, 1.42], look=[0.5, 0.5, -0.5], up=[0.0, 1.0, 0.0])
+    return cammod.make_perspective(c2w, 40.0, resolution, resolve_device(device))
 
 
 def bench_camera(resolution, device=None):

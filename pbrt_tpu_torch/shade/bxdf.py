@@ -1,6 +1,7 @@
-"""BxDF lobes for the bench materials, shading-local frame (counterpart
-of pbrt_tpu/shade/bxdf.py): Lambert / Oren–Nayar, and GGX (Trowbridge–
-Reitz, visible-normal sampling) with dielectric Fresnel."""
+"""BxDF lobes in the shading-local frame (counterpart of
+pbrt_tpu/shade/bxdf.py): Lambert / Oren–Nayar, GGX (Trowbridge–Reitz,
+visible-normal sampling) reflection and transmission with dielectric
+Fresnel, and the specular (delta) reflection and transmission lobes."""
 from __future__ import annotations
 
 import torch
@@ -53,6 +54,15 @@ def sin_phi(w):
 
 def same_hemisphere(a, b):
     return a[..., 2] * b[..., 2] > 0.0
+
+
+def reflect_local(wo):
+    return torch.stack([-wo[..., 0], -wo[..., 1], wo[..., 2]], -1)
+
+
+def _up(w):
+    """Flip w to the upper hemisphere (face_forward(w, +z))."""
+    return torch.where(w[..., 2:3] < 0.0, -w, w)
 
 
 def fresnel_dielectric(cos_theta_i, eta_i, eta_t):
@@ -179,8 +189,7 @@ def microfacet_reflection_f(rs, ax, ay, fresnel_fn, wo, wi):
     wh = wi + wo
     degenerate = (ci == 0.0) | (co == 0.0) | (vm.length_squared(wh) == 0.0)
     wh_n = vm.normalize(wh)
-    # face_forward(wh_n, +z): flip wh_n to the upper hemisphere
-    f = fresnel_fn(vm.dot(wi, torch.where(wh_n[..., 2:3] < 0.0, -wh_n, wh_n)))
+    f = fresnel_fn(vm.dot(wi, _up(wh_n)))
     d = ggx_d(ax, ay, wh_n)
     g = ggx_g(ax, ay, wo, wi)
     val = rs * f * (d * g / torch.clamp(4.0 * co * ci, min=f32(1e-8)))[..., None]
@@ -192,3 +201,86 @@ def microfacet_reflection_pdf(ax, ay, wo, wi):
     wh = vm.normalize(wo + wi)
     pdf = ggx_pdf(ax, ay, wo, wh) / torch.clamp(4.0 * vm.absdot(wo, wh), min=f32(1e-8))
     return torch.where(same_hemisphere(wo, wi), pdf, 0.0)
+
+
+def microfacet_reflection_sample(rs, ax, ay, fresnel_fn, wo, u2):
+    wh = ggx_sample_wh(ax, ay, wo, u2)
+    wi = vm.reflect(wo, wh)
+    pdf = ggx_pdf(ax, ay, wo, wh) / torch.clamp(4.0 * vm.absdot(wo, wh), min=f32(1e-8))
+    ok = same_hemisphere(wo, wi) & (vm.dot(wo, wh) > 0.0)
+    f = microfacet_reflection_f(rs, ax, ay, fresnel_fn, wo, wi)
+    return wi, torch.where(ok[..., None], f, 0.0), torch.where(ok, pdf, 0.0)
+
+
+def microfacet_transmission_f(ts, ax, ay, eta_a, eta_b, wo, wi):
+    """Rough dielectric transmission (radiance transport)."""
+    co, ci = cos_theta(wo), cos_theta(wi)
+    eta = torch.where(co > 0.0, eta_b / eta_a, eta_a / eta_b)
+    wh = _up(vm.normalize(wo + wi * eta[..., None]))
+    denom_ok = (vm.dot(wo, wh) * vm.dot(wi, wh)) <= 0.0
+    fr = fresnel_dielectric(vm.dot(wo, wh), eta_a, eta_b)
+    d = ggx_d(ax, ay, wh)
+    g = ggx_g(ax, ay, wo, wi)
+    sqrt_denom = vm.dot(wo, wh) + eta * vm.dot(wi, wh)
+    factor = 1.0 / torch.clamp(eta, min=f32(1e-8))
+    scalar = (d * g * eta * eta * vm.absdot(wi, wh) * vm.absdot(wo, wh) * factor * factor
+              / torch.clamp((ci * co).abs() * sqrt_denom * sqrt_denom, min=f32(1e-10))).abs()
+    val = (1.0 - fr)[..., None] * ts * scalar[..., None]
+    ok = (~same_hemisphere(wo, wi)) & (ci != 0.0) & (co != 0.0) & denom_ok
+    return torch.where(ok[..., None], val, 0.0)
+
+
+def microfacet_transmission_pdf(ax, ay, eta_a, eta_b, wo, wi):
+    eta = torch.where(cos_theta(wo) > 0.0, eta_b / eta_a, eta_a / eta_b)
+    wh = vm.normalize(wo + wi * eta[..., None])
+    sqrt_denom = vm.dot(wo, wh) + eta * vm.dot(wi, wh)
+    dwh_dwi = ((eta * eta * vm.dot(wi, wh))
+               / torch.clamp(sqrt_denom * sqrt_denom, min=f32(1e-10))).abs()
+    pdf = ggx_pdf(ax, ay, wo, _up(wh)) * dwh_dwi
+    return torch.where(~same_hemisphere(wo, wi), pdf, 0.0)
+
+
+def microfacet_transmission_sample(ts, ax, ay, eta_a, eta_b, wo, u2):
+    wh = ggx_sample_wh(ax, ay, wo, u2)
+    eta = torch.where(cos_theta(wo) > 0.0, eta_a / eta_b, eta_b / eta_a)
+    refr_ok, wi = vm.refract(wo, vm.face_forward(wh, wo), eta)
+    f = microfacet_transmission_f(ts, ax, ay, eta_a, eta_b, wo, wi)
+    pdf = microfacet_transmission_pdf(ax, ay, eta_a, eta_b, wo, wi)
+    ok = (vm.dot(wo, wh) > 0.0) & refr_ok
+    return wi, torch.where(ok[..., None], f, 0.0), torch.where(ok, pdf, 0.0)
+
+
+# specular (delta) lobes: sampled only; their f and pdf are 0
+
+def specular_reflection_sample(r, fresnel_fn, wo):
+    wi = reflect_local(wo)
+    f = fresnel_fn(cos_theta(wi)) * r / torch.clamp(abs_cos_theta(wi), min=f32(1e-8))[..., None]
+    return wi, f, torch.ones_like(wo[..., 0])
+
+
+def specular_transmission_sample(t, eta_a, eta_b, wo):
+    """Returns (wi, f, pdf, ok); radiance transport scales f by
+    (eta_i / eta_t)²."""
+    entering = cos_theta(wo) > 0.0
+    ei = torch.where(entering, eta_a, eta_b)
+    et = torch.where(entering, eta_b, eta_a)
+    n = torch.zeros_like(wo)
+    n[..., 2] = 1.0
+    ok, wi = vm.refract(wo, vm.face_forward(n, wo), ei / et)
+    fr = fresnel_dielectric(cos_theta(wo), eta_a, eta_b)
+    scale = (ei * ei) / torch.clamp(et * et, min=f32(1e-12))
+    f = (1.0 - fr)[..., None] * t * (scale / torch.clamp(abs_cos_theta(wi), min=f32(1e-8)))[..., None]
+    return wi, torch.where(ok[..., None], f, 0.0), torch.where(ok, 1.0, 0.0), ok
+
+
+def fresnel_specular_sample(r, t, eta_a, eta_b, wo, u):
+    """Smooth dielectric, reflection or transmission chosen by Fresnel.
+    Returns (wi, f, pdf, is_transmission)."""
+    fr = fresnel_dielectric(cos_theta(wo), eta_a, eta_b)
+    choose_r = u < fr
+    wi_r = reflect_local(wo)
+    f_r = (fr / torch.clamp(abs_cos_theta(wi_r), min=f32(1e-8)))[..., None] * r
+    wi_t, f_t, pdf_t, ok_t = specular_transmission_sample(t, eta_a, eta_b, wo)
+    return (torch.where(choose_r[..., None], wi_r, wi_t),
+            torch.where(choose_r[..., None], f_r, f_t),
+            torch.where(choose_r, fr, (1.0 - fr) * pdf_t), ~choose_r & ok_t)

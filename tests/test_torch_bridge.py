@@ -1,7 +1,8 @@
 """The bridge refuses what the port would drop without a word: a scene
-tree that does not state its quadric and instance counts (the Cornell
-box's two spheres are quadrics), and a material table that leaves out a
-texture channel the port does not have."""
+tree that does not state its quadric and instance counts, one that
+states quadrics and leaves out their arrays, one with instances, and a
+material table that leaves out a texture channel the port does not have.
+The Cornell box's tree (two spheres) bridges."""
 import numpy as np
 import pytest
 
@@ -16,15 +17,22 @@ from pbrt_tpu_torch.shade import materials as tmat
 @pytest.mark.parametrize("drop", [("quad_count",), ("instance_count",),
                                   ("quad_count", "instance_count")])
 def test_tree_without_counts_is_refused(drop):
+    """Dropping a count is refused for both trees; the Cornell tree also
+    without its quadric arrays, and with an instance stated."""
     cornell = scene_tree(cornell_spheres())
     assert cornell["quad_count"] == 2
     mesh = scene_tree(mesh_scene(subdivisions=1, use_bvh=True))
     assert mesh["quad_count"] == 0 and mesh["instance_count"] == 0
     bridge.scene_from_numpy(mesh, "cpu", tile=256)
+    assert bridge.scene_from_numpy(cornell, "cpu", tile=256).quad.count == 2
     for tree in (cornell, mesh):
         with pytest.raises(NotImplementedError):
             bridge.scene_from_numpy({k: v for k, v in tree.items() if k not in drop},
                                     "cpu", tile=256)
+    with pytest.raises(NotImplementedError):
+        bridge.scene_from_numpy(dict(cornell, quad=None), "cpu", tile=256)
+    with pytest.raises(NotImplementedError):
+        bridge.scene_from_numpy(dict(mesh, instance_count=1), "cpu", tile=256)
 
 
 @pytest.mark.parametrize("channel", tmat.UNPORTED_CHANNELS)

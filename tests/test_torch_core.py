@@ -48,8 +48,9 @@ def test_pcg_hash_and_combine_bit_exact():
 
 
 def test_sobol_direction_vectors_match():
-    np.testing.assert_array_equal(tld.sobol_matrices_2d(),
-                                  jld.sobol_matrices()[:2].astype(np.int64))
+    """All 160 dimensions of the generated table."""
+    np.testing.assert_array_equal(tld.sobol_matrices(),
+                                  jld.sobol_matrices().astype(np.int64))
 
 
 @pytest.mark.parametrize("kind", ["zerotwo", "random"])

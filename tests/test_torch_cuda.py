@@ -288,3 +288,96 @@ def test_overhead_probe_ring_wrap(card, n5, tile):
         assert torch.equal(out.view(torch.int32), plain.view(torch.int32))
         if kind != "empty":
             assert (out[0] == 0).all() and (out[1:] != 0).all()
+
+
+def _cornell_wavefronts(res=64):
+    """The native Cornell box (one cluster) and three wavefronts through
+    it: primary rays, a fused bounce (extension lanes, then shadow lanes
+    toward the ceiling light) and direct lighting's shadow rays."""
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.core import samplers as smp
+    from pbrt_tpu_torch.integrate import direct, driver
+    from pbrt_tpu_torch.geom import scene as tscene
+    scene = scenes.cornell_spheres(False, "area", "cuda", tile=TILE)
+    cam = scenes.cornell_camera((res, res), "cuda")
+    cfg = driver.RenderConfig(width=res, height=res, spp=1,
+                              sampler=smp.SamplerConfig(kind="zerotwo", spp=1))
+    pid, sid = driver.lane_ids(cfg, 0, 1, "cuda")
+    o, d, _, _ = driver.camera_rays(cam, cfg, pid.reshape(-1), sid.reshape(-1))
+    n = o.shape[0]
+    t_min = torch.full((n,), 1e-4, device="cuda")
+    t_max = torch.full((n,), float("inf"), device="cuda")
+    hit = tscene.intersect(scene, o, d)
+    r = np.random.RandomState(3)
+    wi = hit.ns + torch.as_tensor(r.randn(n, 3).astype(np.float32), device="cuda")
+    wi = wi / wi.norm(dim=-1, keepdim=True)
+    to_l = scene.lights.em_tri_p[0].reshape(-1, 3).mean(0) - hit.p
+    dist = to_l.norm(dim=-1)
+    dead = ~hit.valid
+    bounce = (torch.cat([hit.p + 1e-3 * hit.ng, hit.p + 1e-3 * hit.ng]),
+              torch.cat([wi, to_l / dist[:, None]]), torch.cat([t_min, t_min]),
+              torch.cat([torch.where(dead, -1.0, float("inf")),
+                         torch.where(dead, -1.0, dist * 0.999)]),
+              torch.cat([torch.zeros(n, device="cuda"), torch.ones(n, device="cuda")]))
+    sent = []
+    real = tcl.occluded
+    tcl.occluded = lambda cs, *a: (sent.append(a[:4]), real(cs, *a))[1]
+    try:
+        driver.render_lanes(scene, cam, cfg, direct.make_li(cfg, "one"), pid, sid)
+    finally:
+        tcl.occluded = real
+    return scene.clusters, (o, d, t_min, t_max, None), bounce, sent[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wavefront", ["primary", "fused_bounce", "direct_shadow"])
+def test_tracers_on_the_one_cluster_cornell_box(card, wavefront):
+    """Coverage, closest hit and any hit on the Cornell box's wavefronts:
+    one cluster (C = 1) in a coverage word of 128 columns, all but one of
+    them padding. Bit for bit their plain versions, equal test counts."""
+    cs, primary, bounce, shadow = _cornell_wavefronts()
+    assert cs.n_clusters == 1 and cs.bounds.shape[1] == 128
+    o, d, t_min, t_max, flag = {"primary": primary, "fused_bounce": bounce,
+                                "direct_shadow": (*shadow, None)}[wavefront]
+    _, rays, flag_s = tcl.prepare(cs, o, d, t_min, t_max, TILE, flag)
+    n_live = int((rays[7] > rays[6]).sum())
+    nlt = torch.tensor([-(-n_live // TILE)], dtype=torch.int32, device="cuda")
+    c = [torch.zeros(1, dtype=torch.int64, device="cuda") for _ in range(4)]
+    tn, cb = tkern.coverage(rays, cs.bounds, nlt, 1, TILE, tests_run=c[0], tests_needed=c[1])
+    ptn, pcb = tkern.coverage_plain(rays, cs.bounds, nlt, 1, TILE, tests_run=c[2],
+                                    tests_needed=c[3])
+    assert torch.equal(tn, ptn) and torch.equal(cb, pcb)
+    assert int(c[0]) == int(c[1]) == int(c[2]) == int(c[3]) > 0
+    corder, tnear, counts, covbits = tcl.tile_cluster_order(cs, rays, TILE)
+    c = [torch.zeros(1, dtype=torch.int64, device="cuda") for _ in range(4)]
+    if wavefront == "direct_shadow":
+        args = (cs.packed, rays, corder, tnear, counts, covbits, TILE)
+        occ = tkern.occluded(*args, slot_tests=c[0], needed_tests=c[1])
+        assert torch.equal(occ, tkern.occluded_plain(*args, slot_tests=c[2],
+                                                     needed_tests=c[3]))
+        assert 0 < int(occ.sum()) < n_live
+    else:
+        args = (cs.packed, rays, flag_s, corder, tnear, counts, covbits, TILE)
+        for a, b in zip(tkern.closest(*args, slot_tests=c[0], needed_tests=c[1]),
+                        tkern.closest_plain(*args, slot_tests=c[2], needed_tests=c[3])):
+            assert torch.equal(a, b)
+    assert int(c[0]) == int(c[2]) > 0 and int(c[1]) == int(c[3]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("light", ["point", "area", "env"])
+def test_cornell_direct_on_the_card_matches_the_cpu(card, light):
+    """Config 1's direct lighting at 32×32, 2 spp through the kernels on
+    the card against the plain versions on the CPU (the pixel check of
+    tests/test_oracle.py)."""
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.core import samplers as smp
+    from pbrt_tpu_torch.integrate import direct, driver
+    cfg = driver.RenderConfig(width=32, height=32, spp=2,
+                              sampler=smp.SamplerConfig(kind="random", spp=2))
+    imgs = [driver.render(scenes.cornell_spheres(False, light, dev, tile=TILE),
+                          scenes.cornell_camera((32, 32), dev), cfg,
+                          direct.make_li(cfg)).cpu().numpy() for dev in ("cuda", "cpu")]
+    diff = np.abs(imgs[0] - imgs[1])
+    ok = (diff / np.maximum(np.abs(imgs[1]), 1e-2) < 2e-3).all(-1)
+    assert ok.mean() >= 0.995 and abs(imgs[0].mean() - imgs[1].mean()) < 1e-3

@@ -26,19 +26,28 @@ RTOL, ATOL = 1e-4, 1e-6
 def scene_tree(js):
     """The JAX scene's arrays as the dict bridge.scene_from_numpy takes."""
     a = lambda obj, names: {n: np.asarray(getattr(obj, n)) for n in names}  # noqa: E731
+    lt = js.lights
+    lights = a(lt, [k for k, _ in tlights.COLUMNS])
+    for part in ("conditional", "marginal"):
+        d1 = getattr(lt.env_dist, part)
+        lights.update({f"{part}_{k}": np.asarray(getattr(d1, k))
+                       for k in ("func", "cdf", "func_int")})
+    lights["env_index"] = lt.env_index
+    n_quad = int(js.quad.kind.shape[0])
     tree = dict(
         tri=a(js.tri, ("positions", "indices", "normals", "uvs", "has_normals",
                        "material_id", "light_id")),
+        quad=a(js.quad, js.quad._fields) if n_quad else None,
         clusters=a(js.clusters, js.clusters._fields) if js.clusters is not None else None,
-        materials=a(js.materials, ("kind", "kd", "ks", "roughness", "eta", "sigma",
-                                   "remap_roughness", "kd_tex", "ks_tex", "kr_tex",
+        materials=a(js.materials, ("kind", "kd", "ks", "kr", "kt", "roughness", "eta",
+                                   "sigma", "remap_roughness", "kd_tex", "ks_tex", "kr_tex",
                                    "kt_tex", "roughness_tex", "sigma_tex", "bump_tex")),
-        lights=a(js.lights, ("kind", "emit", "two_sided", "total_area", "em_tri_cdf",
-                             "em_tri_p")),
-        textures=None, world_center=np.asarray(js.world_center),
-        world_radius=float(js.world_radius), quad_count=int(js.quad.kind.shape[0]),
+        lights=lights, textures=None,
+        light_distrib=(a(js.light_distrib, js.light_distrib._fields)
+                       if js.light_distrib is not None else None),
+        world_center=np.asarray(js.world_center),
+        world_radius=float(js.world_radius), quad_count=n_quad,
         instance_count=len(js.instances or ()))
-    tree["lights"]["env_index"] = js.lights.env_index
     if js.textures is not None:
         tree["textures"] = a(js.textures, ("kind", "su", "sv", "atlas_slot", "atlas",
                                            "lvl_size", "lvl_off"))
@@ -116,8 +125,8 @@ def test_area_light_sampling_and_pdfs(scenes):
     lt = np.zeros(n, np.int64)
     jls = jlights.sample_li(js.lights, js, jnp.asarray(lt), jnp.asarray(p_ref),
                             jnp.asarray(u2), js.world_radius)
-    tls = tlights.sample_li(ts.lights, torch.as_tensor(lt), torch.as_tensor(p_ref),
-                            torch.as_tensor(u2))
+    tls = tlights.sample_li(ts.lights, ts, torch.as_tensor(lt), torch.as_tensor(p_ref),
+                            torch.as_tensor(u2), ts.world_radius)
     for k in ("wi", "li", "pdf", "p_light", "dist", "ng_l"):
         _close(tls[k], jls[k])
     np.testing.assert_array_equal(tls["is_delta"].numpy(), np.asarray(jls["is_delta"]))
@@ -129,7 +138,8 @@ def test_area_light_sampling_and_pdfs(scenes):
            jlights.area_light_radiance(js.lights, jnp.asarray(lid), jnp.asarray(ng),
                                        jnp.asarray(w)))
     p_hit = np.asarray(jls["p_light"])
-    _close(tlights.pdf_li_area_scene(ts.lights, torch.as_tensor(lid), torch.as_tensor(p_ref),
+    _close(tlights.pdf_li_area_scene(ts.lights, ts, torch.as_tensor(lid),
+                                     torch.as_tensor(p_ref),
                                      torch.as_tensor(p_hit), torch.as_tensor(ng)),
            jlights.pdf_li_area_scene(js.lights, js, jnp.asarray(lid), jnp.asarray(p_ref),
                                      jnp.asarray(p_hit), jnp.asarray(ng)))

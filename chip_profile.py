@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
 """Where the time of one frame goes, on the GPU.
 
-    python3 chip_profile.py [path|direct|ao|cornell ...]
+    python3 chip_profile.py [path|direct|ao|cornell|volpath|volpath_bench_fog|
+                             volpath_smoke|whitted ...]
 
 Renders the bench frames of chip_smoke.py (512×512, 1 spp, zerotwo; path
 at depth 5 with compact_from=1, direct lighting with strategy "one",
 ambient occlusion with 4 cosine samples; path alone by default), or
 `cornell`, baseline config 2 (the Cornell box with a mirror and a glass
 sphere, path at depth 5 with compact_from=1, 256×256 at 64 spp in
-wavefronts of pbrt_tpu_torch.scenes.CORNELL_SPP_BATCH samples), through
-pbrt_tpu_torch: for each, one warm-up, three frames timed with the host
+wavefronts of pbrt_tpu_torch.scenes.CORNELL_SPP_BATCH samples), or
+`volpath`, baseline config 4 (the fog box, volpath at depth 5, 512×512 at
+4 spp in one wavefront, zerotwo), `volpath_bench_fog` and `volpath_smoke`
+(the bench scene in fog and the smoke box, 512×512, 1 spp), or `whitted`
+(config 2's box, Whitted at depth 5, 256×256 at 16 spp in one wavefront),
+through pbrt_tpu_torch: for each, one warm-up, three frames timed with the host
 clock around torch.cuda.synchronize(), then one frame under
 torch.profiler. Prints the frame time, the device-busy share (sum of GPU
 kernel time over the profiled frame's wall time), the time of the CUDA
@@ -30,11 +35,12 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_profile.py needs a GPU")
     from pbrt_tpu_torch.core import samplers as smp
-    from pbrt_tpu_torch.integrate import ao, direct, driver, path
+    from pbrt_tpu_torch.integrate import ao, direct, driver, path, volpath, whitted
     from pbrt_tpu_torch.kernels import cluster_cuda as kern
     from pbrt_tpu_torch.scenes import (CORNELL_RES, CORNELL_SPP, CORNELL_SPP_BATCH,
-                                       bench_camera, bench_scene, cornell_camera,
-                                       cornell_spheres)
+                                       bench_camera, bench_fog_scene, bench_scene,
+                                       cornell_camera, cornell_spheres, fog_scene,
+                                       smoke_scene, volumetric_camera)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -65,6 +71,26 @@ def main():
                                    sampler=smp.SamplerConfig(kind="zerotwo", spp=CORNELL_SPP))
         cli = path.make_li(ccfg, camera=ccam, compact_from=1, return_stats=True)
         frames["cornell"] = lambda: driver.render(cscene, ccam, ccfg, cli)
+
+    def volpath_frame(scene, cam, spp):
+        cfg = driver.RenderConfig(width=512, height=512, spp=spp, max_depth=5,
+                                  sampler=smp.SamplerConfig(kind="zerotwo", spp=spp))
+        li = volpath.make_li(cfg, return_stats=True)
+        return lambda: driver.render(scene, cam, cfg, li)
+
+    for name, make in (("volpath", lambda: (fog_scene(device=dev), volumetric_camera, 4)),
+                       ("volpath_bench_fog", lambda: (bench_fog_scene(6, dev), bench_camera, 1)),
+                       ("volpath_smoke", lambda: (smoke_scene(device=dev), volumetric_camera, 1))):
+        if name in names:
+            vscene, vcam, vspp = make()
+            frames[name] = volpath_frame(vscene, vcam((512, 512), dev), vspp)
+    if "whitted" in names:
+        wscene = cornell_spheres(True, "area", dev)
+        wcam = cornell_camera((256, 256), dev)
+        wcfg = driver.RenderConfig(width=256, height=256, spp=16, max_depth=5,
+                                   sampler=smp.SamplerConfig(kind="zerotwo", spp=16))
+        wli = whitted.make_li(wcfg, return_stats=True)
+        frames["whitted"] = lambda: driver.render(wscene, wcam, wcfg, wli)
     for name in names:
         profile_frame(torch, name, frames[name])
 

@@ -51,6 +51,24 @@ Phases, each printing one line with its elapsed seconds:
      warm-up and two timed frames, 0 NaN, Mrays/s from rays_traced, the
      launches; then 16×16 at 4 spp on the card against the CPU (the
      pixel check);
+  12. config 4 (volpath, the fog box, 512×512, 4 spp in one wavefront of
+     1,048,576 lanes, depth 5): the tracers on every tile of the frame's
+     primary launch and of its first fused launch (N extension + 2N
+     shadow lanes) against their plain versions, bit for bit with equal
+     test counts; two timed frames, 0 NaN, Mrays/s from rays_traced,
+     launches 6/6/0 a frame; 16×16 on the card against the CPU (the pixel
+     check);
+  13. volpath on the bench scene in fog and on the smoke box (grid
+     medium), 512×512, 1 spp: the tracers on the primary and the first
+     fused launch of a frame against their plain versions (the bench on
+     32 tiles spread over each, the smoke box on every tile); two timed
+     frames each, launches 6/6/0, the tracking loops' mean steps; each
+     at 16×16 against the CPU;
+  14. Whitted on config 2's box, 256×256 at 16 spp in one wavefront,
+     depth 5: the tracers on every tile of the first depth's closest-hit
+     and any-hit launches against their plain versions; two timed
+     frames, launches 5 closest and 5 any hit per light row a frame;
+     16×16 against the CPU;
   11. sample_li and pdf_li_area_scene of all eight light kinds, and
      build_spatial, on the card against the CPU (allclose on every lane
      but the ill-conditioned ones, by a float64 rule: check_lights);
@@ -328,23 +346,24 @@ def any_hit_queries(sent):
     return [w for kind, w in sent if kind == "occluded"]
 
 
-def check_sent(kern, clmod, cs, sent, tile, tag):
+def check_sent(kern, clmod, cs, sent, tile, tag, limit=None):
     """Coverage and the tracer of each wavefront in `sent` against their
-    plain versions on every tile, bit for bit with equal test counts (the
-    gates of check_coverage, check_closest and check_occluded). Returns
-    the shapes held: [(kind, lanes, tiles)]."""
+    plain versions on `limit` tiles spread over it (None: every tile), bit
+    for bit with equal test counts (the gates of check_coverage,
+    check_closest and check_occluded). Returns the shapes held: [(kind,
+    lanes, tiles)]."""
     held = []
     for i, (kind, w) in enumerate(sent):
         t = f"{tag}_{i}_{kind}"
         if kind == "closest":
             o, d, t_min, t_max, flag = w
             _, rays, flag_s = clmod.prepare(cs, o, d, t_min, t_max, tile, flag)
-            check_coverage(kern, cs, rays, tile, t, limit=None, timed=False)
-            check_closest(kern, clmod, cs, rays, flag_s, tile, t, limit=None, timed=False)
+            check_coverage(kern, cs, rays, tile, t, limit=limit, timed=False)
+            check_closest(kern, clmod, cs, rays, flag_s, tile, t, limit=limit, timed=False)
         else:
             rays = clmod.prepare(cs, *w, tile)[1]
-            check_coverage(kern, cs, rays, tile, t, limit=None, timed=False)
-            check_occluded(kern, clmod, cs, *w, tile, t, limit=None, timed=False)
+            check_coverage(kern, cs, rays, tile, t, limit=limit, timed=False)
+            check_occluded(kern, clmod, cs, *w, tile, t, limit=limit, timed=False)
         held.append((kind, int(w[0].shape[0]), rays.shape[1] // tile))
     return held
 
@@ -645,7 +664,8 @@ def cornell_phases(kern, clmod, scenemod, driver, direct, path, smp, dev, tile):
     area and env lights; config 2 (path depth 5, specular spheres,
     256×256, 64 spp); before each config's timed frames, the tracers on
     every wavefront it traces (config 2: its first batch), every tile
-    against the plain versions. Returns {path tag: kernel launches}."""
+    against the plain versions. Returns ({path tag: kernel launches},
+    {path tag: frames})."""
     import numpy as np
     import torch
     from pbrt_tpu_torch import scenes as scenes_mod
@@ -697,7 +717,7 @@ def cornell_phases(kern, clmod, scenemod, driver, direct, path, smp, dev, tile):
     check_occluded(kern, clmod, cs, *sent[0], tile, "cornell_shadow")
     torch.cuda.synchronize()
 
-    by_path = {}
+    by_path, frames_by = {}, {}
     # 9. config 1: direct lighting, 64×64, 4 spp, each light variant
     for light in ("point", "area", "env"):
         t0 = time.perf_counter()
@@ -717,7 +737,7 @@ def cornell_phases(kern, clmod, scenemod, driver, direct, path, smp, dev, tile):
         frac, mdiff, ok = pixel_check(img, ref)
         rays = float(stats["rays_traced"])
         tag = f"cornell_config1_{light}"
-        by_path[tag] = launches
+        by_path[tag], frames_by[tag] = launches, 3
         per_frame = {k: v // 3 for k, v in launches.items()}
         log(tag, resolution="64x64", spp=4, integrator="direct", frame_ms=ms,
             mrays_per_s=f"{rays * 3 / sum(ms) / 1e3:.3f}", rays_per_frame=rays,
@@ -745,7 +765,7 @@ def cornell_phases(kern, clmod, scenemod, driver, direct, path, smp, dev, tile):
     rays = float(stats["rays_traced"])
     n_nan = int(torch.isnan(img).sum())
     batches = CORNELL_SPP // CORNELL_SPP_BATCH
-    by_path["cornell_config2"] = launches
+    by_path["cornell_config2"], frames_by["cornell_config2"] = launches, 2
     per_frame = {k: v // 2 for k, v in launches.items()}
     log("cornell_config2", resolution=f"{res}x{res}", spp=CORNELL_SPP, depth=5,
         integrator="path",
@@ -769,7 +789,136 @@ def cornell_phases(kern, clmod, scenemod, driver, direct, path, smp, dev, tile):
     if not ok:
         fail("cornell_config2_16x16: the render through the kernels disagrees with the plain "
              "versions")
-    return by_path
+    return by_path, frames_by
+
+
+def volpath_phases(kern, clmod, driver, smp, dev, tile, kernels):
+    """Phases 12–14, baseline config 4 and Whitted. Before each path's
+    timed frames, the tracers on the wavefronts of one frame against their
+    plain versions: volpath's primary and first fused (N extension + 2N
+    shadow lanes) launch, Whitted's first depth (one closest-hit and one
+    any-hit launch per light), every tile on the one-cluster boxes and
+    PLAIN_TILES tiles spread over each on the bench scene. Config 4's fog
+    box at 512×512, 4 spp in one wavefront, depth 5, two timed frames; the
+    bench scene in fog at 512×512, 1 spp; the smoke box (grid medium) at
+    512×512, 1 spp; Whitted on config 2's box at 256×256, 16 spp in one
+    wavefront, depth 5; each at 16×16 against the plain versions on the
+    CPU (the pixel check). Returns ({path tag: kernel launches}, {path
+    tag: frames})."""
+    import numpy as np
+    import torch
+    from pbrt_tpu_torch import scenes as scenes_mod
+    from pbrt_tpu_torch.integrate import volpath, whitted
+    from pbrt_tpu_torch.shade import media as medmod
+    by_path, frames_by = {}, {}
+
+    def small_check(tag, make_scene, make_li, res, spp, make_cam=scenes_mod.cornell_camera):
+        c = driver.RenderConfig(width=res, height=res, spp=spp, max_depth=5,
+                                sampler=smp.SamplerConfig(kind="zerotwo", spp=spp))
+        imgs = [driver.render(make_scene(d), make_cam((res, res), d), c,
+                              make_li(c)).cpu().numpy() for d in (dev, "cpu")]
+        frac, mdiff, ok = pixel_check(*imgs)
+        log(tag, pixels_within_tol=f"{frac:.4f}", mean_diff=f"{mdiff:.3e}",
+            mean=f"{imgs[0].mean():.6f}", passed=ok)
+        if not ok or not np.isfinite(imgs[0]).all():
+            fail(f"{tag}: the render through the kernels disagrees with the plain versions")
+
+    def hold_frame(tag, scene, cam, cfg, li, want, first, limit=None):
+        """One frame's wavefronts, in order: `want` the (kind, lanes, shadow
+        lanes) of each; the first `first` held against the plain versions
+        (on `limit` tiles spread over each, None for every tile)."""
+        t0 = time.perf_counter()
+        sent = sent_wavefronts(clmod, lambda: driver.render(scene, cam, cfg, li))
+        shapes = [(k, int(w[0].shape[0]), None if k != "closest" or w[4] is None
+                   else int(w[4].sum())) for k, w in sent]
+        if shapes != want:
+            fail(f"{tag}: traced {shapes}, expected {want}")
+        held = check_sent(kern, clmod, scene.clusters, sent[:first], tile, tag, limit)
+        del sent
+        log(f"{tag}_wavefronts", held=held, compared_tiles_each=limit or "all",
+            seconds=f"{time.perf_counter() - t0:.2f}", all_compared_equal=True)
+
+    def frame_phase(tag, scene, cam, cfg, li, want, frames=2, extra=dict):
+        t0 = time.perf_counter()
+        (img, stats), ms, launches = timed_frames(lambda: driver.render(scene, cam, cfg, li),
+                                                  kernels, frames)
+        rays = float(stats["rays_traced"])
+        n_nan = int(torch.isnan(img).sum())
+        per_frame = {k: v // frames for k, v in launches.items()}
+        by_path[tag], frames_by[tag] = launches, frames
+        log(tag, resolution=f"{cfg.width}x{cfg.height}", spp=cfg.spp, depth=cfg.max_depth,
+            lanes=cfg.width * cfg.height * cfg.spp, frame_ms=ms,
+            mrays_per_s=f"{rays * frames / sum(ms) / 1e3:.3f}", rays_per_frame=rays,
+            launches_per_frame=per_frame, image_mean=f"{float(img.mean()):.6f}", nan=n_nan,
+            **extra(), seconds=f"{time.perf_counter() - t0:.2f}")
+        if n_nan or not bool(torch.isfinite(img).all()) \
+                or tuple(img.shape) != (cfg.height, cfg.width, 3):
+            fail(f"{tag}: image is not finite")
+        if per_frame != want or any(v % frames for v in launches.values()):
+            fail(f"{tag}: launches over {frames} frames {launches}, expected {want} a frame")
+
+    def volpath_shapes(cfg):
+        """One primary launch of n lanes, five fused launches of n
+        extension and 2n shadow lanes."""
+        n = cfg.width * cfg.height * cfg.spp
+        return [("closest", n, None)] + [("closest", 3 * n, 2 * n)] * 5
+
+    six = {"coverage": 6, "closest": 6, "occluded": 0}
+    # 12. config 4: the fog box
+    res, spp = 512, 4
+    fog = scenes_mod.fog_scene(device=dev)
+    cam = scenes_mod.volumetric_camera((res, res), dev)
+    c4 = driver.RenderConfig(width=res, height=res, spp=spp, max_depth=5,
+                             sampler=smp.SamplerConfig(kind="zerotwo", spp=spp))
+    li4 = volpath.make_li(c4, return_stats=True)
+    hold_frame("volpath_fog", fog, cam, c4, li4, volpath_shapes(c4), 2)
+    frame_phase("volpath_fog", fog, cam, c4, li4, six)
+    small_check("volpath_fog_16x16", lambda d: scenes_mod.fog_scene(device=d),
+                lambda c: volpath.make_li(c), 16, 4)
+
+    # 13. the bench scene in fog (702 clusters: a spread subset of tiles);
+    # the smoke box (grid medium)
+    c1 = driver.RenderConfig(width=res, height=res, spp=1, max_depth=5,
+                             sampler=smp.SamplerConfig(kind="zerotwo", spp=1))
+    bench_fog = scenes_mod.bench_fog_scene(6, dev)
+    bcam = scenes_mod.bench_camera((res, res), dev)
+    li1 = volpath.make_li(c1, return_stats=True)
+    hold_frame("volpath_bench_fog", bench_fog, bcam, c1, li1, volpath_shapes(c1), 2,
+               PLAIN_TILES)
+    frame_phase("volpath_bench_fog", bench_fog, bcam, c1, li1, six)
+    del bench_fog
+    small_check("volpath_bench_fog_16x16", lambda d: scenes_mod.bench_fog_scene(6, d),
+                lambda c: volpath.make_li(c), 16, 4, scenes_mod.bench_camera)
+    smoke = scenes_mod.smoke_scene(device=dev)
+    hold_frame("volpath_smoke", smoke, cam, c1, li1, volpath_shapes(c1), 2)
+    steps0 = (medmod.TRACKED.steps, medmod.TRACKED.calls)
+
+    def track_stats():
+        steps = medmod.TRACKED.steps - steps0[0]
+        calls = medmod.TRACKED.calls - steps0[1]
+        return dict(tracking_calls=calls, tracking_mean_steps=f"{steps / max(calls, 1):.2f}")
+
+    frame_phase("volpath_smoke", smoke, cam, c1, li1, six, extra=track_stats)
+    small_check("volpath_smoke_16x16", lambda d: scenes_mod.smoke_scene(device=d),
+                lambda c: volpath.make_li(c), 16, 2)
+
+    # 14. Whitted on config 2's box, 256×256 at 16 spp in one wavefront
+    wres, wspp = 256, 16
+    box = scenes_mod.cornell_spheres(True, "area", dev)
+    nl = box.lights.count
+    wcam = scenes_mod.cornell_camera((wres, wres), dev)
+    cw = driver.RenderConfig(width=wres, height=wres, spp=wspp, max_depth=5,
+                             sampler=smp.SamplerConfig(kind="zerotwo", spp=wspp))
+    lw = whitted.make_li(cw, return_stats=True)
+    n = wres * wres * wspp
+    hold_frame("whitted_cornell", box, wcam, cw, lw,
+               ([("closest", n, None)] + [("occluded", n, None)] * nl) * 5, 1 + nl)
+    frame_phase("whitted_cornell", box, wcam, cw, lw,
+                {"coverage": 5 + 5 * nl, "closest": 5, "occluded": 5 * nl},
+                extra=lambda: {"lights": nl})
+    small_check("whitted_cornell_16x16", lambda d: scenes_mod.cornell_spheres(True, "area", d),
+                lambda c: whitted.make_li(c), 16, 4)
+    return by_path, frames_by
 
 
 def main():
@@ -879,7 +1028,7 @@ def main():
                 {"coverage": 3, "closest": 2, "occluded": 1}),
                ("bench_ao", ao.make_li(cfg, True, 4, return_stats=True),
                 {"coverage": 5, "closest": 1, "occluded": 4}))
-    frames, by_path = 2, {}
+    frames, by_path, frames_by = 2, {}, {}
     for tag, li, per_frame in benches:
         def frame():
             return driver.render_lanes(scene, cam, cfg, li, pid, sid)[0]
@@ -896,7 +1045,7 @@ def main():
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         launches = {k: fn.launches for k, fn in kernels.items()}
-        by_path[tag] = launches
+        by_path[tag], frames_by[tag] = launches, frames
         img = img.reshape(res, res, 3)
         n_nan = int(torch.isnan(img).sum())
         rays = float(stats["rays_traced"])    # each integrator counts its own
@@ -915,7 +1064,10 @@ def main():
     # 8-10. the Cornell box; 11. the light table on the card
     from pbrt_tpu_torch import scenes as scenes_mod
     from pbrt_tpu_torch.lights import distrib, lights as lightsmod
-    by_path.update(cornell_phases(kern, clmod, scenemod, driver, direct, path, smp, dev, tile))
+    for part in (cornell_phases(kern, clmod, scenemod, driver, direct, path, smp, dev, tile),
+                 volpath_phases(kern, clmod, driver, smp, dev, tile, kernels)):
+        by_path.update(part[0])
+        frames_by.update(part[1])
     check_lights(scenes_mod, lightsmod, distrib, dev)
 
     # 7. the probes, their launches counted over this phase
@@ -938,6 +1090,8 @@ def main():
                     ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=bound_ms, bound_by=by,
                     library_ms=None,
                     launches_by_path={k: v[name] for k, v in by_path.items()},
+                    launches_per_frame_by_path={k: v[name] // frames_by[k]
+                                                for k, v in by_path.items()},
                     subset_kernel_ms=c["subset_kernel_ms"], plain_tiles=c["plain_tiles"],
                     **extra)
 

@@ -2,8 +2,8 @@
 
 `scene_from_numpy` takes a scene as plain numpy arrays — the JAX
 package's Scene, QuadricSoA, ClusterSet, MaterialTable, TextureTable,
-LightTable and SpatialLightDistribution fields flattened to dicts by the
-caller — and returns the port's Scene,
+LightTable, SpatialLightDistribution and MediumTable fields flattened to
+dicts by the caller — and returns the port's Scene,
 so both packages can render the very same scene. `camera_from_numpy`
 does the same for a perspective camera. Nothing here imports the JAX
 package."""
@@ -21,6 +21,7 @@ from .geom.types import quadrics_from_numpy, triangles_from_numpy
 from .lights.distrib import spatial_from_numpy
 from .lights.lights import lights_from_numpy
 from .shade.materials import materials_from_numpy
+from .shade.media import media_from_numpy
 from .shade.textures import textures_from_numpy
 
 
@@ -40,18 +41,20 @@ def _clusters(c, device):
 
 def scene_from_numpy(tree, device=None, tile=clmod.TILE):
     """tree: dict with "tri", "quad" (or None when "quad_count" is 0),
-    "clusters" (or None), "materials", "lights", "textures" (or None)
-    and "light_distrib" (or None) sub-dicts of numpy arrays, plus
-    "world_center", "world_radius", "quad_count" and "instance_count".
-    Instances are not ported: a scene with any is refused, and so is a
-    tree that does not state both counts, or that states quadrics and
-    leaves out their arrays (they would go missing without a word)."""
+    "clusters" (or None), "materials", "lights", "textures" (or None),
+    "light_distrib" (or None) and "media" (or None) sub-dicts of numpy
+    arrays, plus "world_center", "world_radius", "quad_count" and
+    "instance_count". Instances are not ported: a scene with any is
+    refused, and so is a tree that does not state both counts and its
+    media, or that states quadrics and leaves out their arrays (they would
+    go missing without a word)."""
     device = resolve_device(device)
     t = tree["tri"]
-    missing = [k for k in ("quad_count", "instance_count") if k not in tree]
+    missing = [k for k in ("quad_count", "instance_count", "media") if k not in tree]
     if missing:
         raise NotImplementedError(f"the scene tree does not state {missing}: a scene "
-                                  "must show its quadrics and that it has no instances")
+                                  "must show its quadrics, its media (None or arrays) "
+                                  "and that it has no instances")
     if int(tree["instance_count"]):
         raise NotImplementedError("instances are not ported yet")
     quad = tree.get("quad")
@@ -72,7 +75,7 @@ def scene_from_numpy(tree, device=None, tile=clmod.TILE):
         world_center=torch.as_tensor(np.asarray(tree["world_center"], np.float32),
                                      device=device),
         world_radius=float(np.float32(tree["world_radius"])),
-        tile=tile)
+        tile=tile, media=media_from_numpy(tree["media"], device))
 
 
 def camera_from_numpy(cam, device=None):

@@ -17,6 +17,7 @@ def f32(x) -> float:
 
 PI = f32(np.pi)
 INV_PI = f32(1.0 / np.pi)
+INV_4PI = f32(1.0 / (4.0 * np.pi))
 INV_2PI = f32(0.5 / np.pi)
 PI_OVER_2 = f32(np.pi / 2.0)
 PI_OVER_4 = f32(np.pi / 4.0)

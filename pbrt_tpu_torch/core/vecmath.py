@@ -55,6 +55,11 @@ def spherical_direction(sin_theta, cos_theta, phi):
     return torch.stack([sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta], -1)
 
 
+def spherical_direction_in_frame(sin_theta, cos_theta, phi, x, y, z):
+    return ((sin_theta * torch.cos(phi))[..., None] * x
+            + (sin_theta * torch.sin(phi))[..., None] * y + cos_theta[..., None] * z)
+
+
 def spherical_theta(v):
     return torch.arccos(torch.clamp(v[..., 2], -1.0, 1.0))
 

@@ -36,6 +36,7 @@ class Scene:
     world_center: torch.Tensor   # (3,)
     world_radius: float          # a float32 value
     tile: int = clmod.TILE       # rays per tracer tile
+    media: Any = None            # shade.media.MediumTable or None
 
     @property
     def device(self):

@@ -7,7 +7,9 @@ spheres of the baseline configs (counterpart of
 scenes/cornell.cornell_spheres), through the parts of
 pbrt_tpu.api.SceneBuilder.build and geom.cluster.build_clusters they use;
 the Cornell box with a table of all eight light kinds, and config 2's
-published size."""
+published size; baseline config 4, the fog-filled box and its smoke
+variant (counterpart of scenes/volumetric.py), and the bench scene in
+fog."""
 from __future__ import annotations
 
 import dataclasses
@@ -26,6 +28,7 @@ from .geom.types import (QUAD_CONE, QUAD_CYLINDER, QUAD_DISK, QUAD_HYPERBOLOID,
                          triangles_from_numpy)
 from .lights import lights as lightsmod
 from .shade import materials as matmod
+from .shade import media as medmod
 from .shade.textures import build_image_textures
 
 # Baseline config 2 (BASELINE.json) at its published size: the Cornell box
@@ -46,8 +49,9 @@ def wood_image(size=512):
 
 class _Builder:
     """The parts of SceneBuilder the native scenes use: meshes and quads,
-    the six quadrics, material rows, one image texture list, and area
-    quad, point and infinite lights, built into the port's Scene."""
+    the six quadrics, material rows and medium interfaces, one image
+    texture list, area quad, point and infinite lights, and one
+    homogeneous or grid medium, built into the port's Scene."""
 
     def __init__(self):
         self.verts, self.normals, self.uvs, self.tris = [], [], [], []
@@ -55,6 +59,7 @@ class _Builder:
         self.quads = []       # (kind, obj_to_world, params, material, light)
         self.materials, self.lights, self.images = [], [], []
         self.env_image = self.env_to_world = None
+        self.media_rows, self.media_grid = None, None
         self.vbase = 0
         self.tbase = 0
 
@@ -153,13 +158,41 @@ class _Builder:
         self.env_image, self.env_to_world = image, env_to_world
         return len(self.lights) - 1
 
+    def medium_interface(self, material, inside=-1, outside=0):
+        """The media a ray enters when it transmits into / out of surfaces
+        of `material` (-1 = vacuum)."""
+        self.materials[material]["med_inside"] = int(inside)
+        self.materials[material]["med_outside"] = int(outside)
+        return material
+
+    def set_homogeneous_medium(self, sigma_a, sigma_s, g=0.0):
+        """A homogeneous medium filling the scene (medium 0)."""
+        self.media_rows = [dict(kind=medmod.MEDIUM_HOMOGENEOUS, sigma_a=sigma_a,
+                                sigma_s=sigma_s, g=g)]
+        self.media_grid = None
+        return 0
+
+    def set_grid_medium(self, density, sigma_a, sigma_s, g=0.0, world_to_medium=None,
+                        scale=1.0):
+        """A density-grid medium filling the scene (medium 0)."""
+        row = dict(kind=medmod.MEDIUM_GRID, sigma_a=sigma_a, sigma_s=sigma_s, g=g,
+                   scale=scale)
+        if world_to_medium is not None:
+            row["world_to_medium"] = world_to_medium
+        self.media_rows, self.media_grid = [row], density
+        return 0
+
     def build(self, device, tile, clusters=True):
-        pos = np.concatenate(self.verts)
-        idx = np.concatenate(self.tris)
-        tri = triangles_from_numpy(pos, idx, np.concatenate(self.normals),
-                                   np.concatenate(self.uvs), np.concatenate(self.has_ns),
-                                   np.concatenate(self.mat), np.concatenate(self.light),
-                                   device)
+        if not self.materials:
+            self.matte(kd=(0.0, 0.0, 0.0))   # shape-less scenes still gather row 0
+        cat = lambda parts, shape, dt: (np.concatenate(parts) if parts  # noqa: E731
+                                        else np.zeros(shape, dt))
+        pos = cat(self.verts, (0, 3), np.float32)
+        idx = cat(self.tris, (0, 3), np.int32)
+        tri = triangles_from_numpy(pos, idx, cat(self.normals, (0, 3), np.float32),
+                                   cat(self.uvs, (0, 2), np.float32),
+                                   cat(self.has_ns, (0,), bool), cat(self.mat, (0,), np.int32),
+                                   cat(self.light, (0,), np.int32), device)
         qa = None
         if self.quads:
             o2w = np.stack([q[1] for q in self.quads])
@@ -172,7 +205,7 @@ class _Builder:
                                              if qa else ()))
         return Scene(
             tri=tri, quad=quadrics_from_numpy(qa, device),
-            clusters=clmod.build_clusters(pos, idx, device) if clusters else None,
+            clusters=clmod.build_clusters(pos, idx, device) if clusters and len(idx) else None,
             materials=matmod.build_materials(self.materials, device),
             lights=lightsmod.build_lights(self.lights, pos, idx,
                                           None if qa is None else qa["params"],
@@ -180,7 +213,9 @@ class _Builder:
             textures=build_image_textures(self.images, device) if self.images else None,
             light_distrib=None,
             world_center=torch.as_tensor(center, device=device),
-            world_radius=radius, tile=tile)
+            world_radius=radius, tile=tile,
+            media=(None if self.media_rows is None
+                   else medmod.build_media(self.media_rows, self.media_grid, device)))
 
 
 def bench_scene(subdivisions=6, device=None, tile=clmod.TILE):
@@ -204,6 +239,66 @@ def bench_scene(subdivisions=6, device=None, tile=clmod.TILE):
     b.area_light_quad([c - e, y, -c + e], [c - e, y, -c - e],
                       [c + e, y, -c - e], [c + e, y, -c + e], radiance=(14.0, 14.0, 14.0))
     return b.build(device, tile)
+
+
+# fog_scene's default medium: sigma_a, sigma_s, g
+FOG = ((0.08, 0.08, 0.08), (0.45, 0.45, 0.45), 0.2)
+
+
+def bench_fog_scene(subdivisions=6, device=None, tile=clmod.TILE):
+    """The bench scene filled with fog_scene's default medium. The bench
+    box is the same unit box as config 4's, so the density means the same."""
+    scene = bench_scene(subdivisions, device, tile)
+    return dataclasses.replace(scene, media=medmod.build_media(
+        [dict(kind=medmod.MEDIUM_HOMOGENEOUS, sigma_a=FOG[0], sigma_s=FOG[1], g=FOG[2])],
+        device=scene.device))
+
+
+def fog_scene(sigma_a=FOG[0], sigma_s=FOG[1], g=FOG[2], device=None, tile=clmod.TILE):
+    """Baseline config 4 (counterpart of scenes/volumetric.fog_scene): a
+    Cornell-style box with a mirror sphere, filled with a homogeneous
+    scattering medium."""
+    b = _Builder()
+    white = b.matte(kd=(0.73, 0.73, 0.73))
+    red = b.matte(kd=(0.65, 0.05, 0.05))
+    green = b.matte(kd=(0.12, 0.45, 0.15))
+    s = 1.0
+    b.add_quad([0, 0, 0], [s, 0, 0], [s, 0, -s], [0, 0, -s], white)
+    b.add_quad([0, s, 0], [0, s, -s], [s, s, -s], [s, s, 0], white)
+    b.add_quad([0, 0, -s], [s, 0, -s], [s, s, -s], [0, s, -s], white)
+    b.add_quad([0, 0, 0], [0, 0, -s], [0, s, -s], [0, s, 0], red)
+    b.add_quad([s, 0, 0], [s, s, 0], [s, s, -s], [s, 0, -s], green)
+    b.add_sphere([0.4, 0.25, -0.55], 0.22, b.mirror(kr=0.85))
+    e, c, y = 0.2, s / 2, s - 1e-3
+    b.area_light_quad([c - e, y, -c + e], [c - e, y, -c - e],
+                      [c + e, y, -c - e], [c + e, y, -c + e], radiance=(22.0, 22.0, 22.0))
+    b.set_homogeneous_medium(sigma_a, sigma_s, g)
+    return b.build(resolve_device(device), tile)
+
+
+def smoke_scene(device=None, tile=clmod.TILE):
+    """Config 4's grid-density variant (counterpart of
+    scenes/volumetric.smoke_scene): a smoke column over a floor and a back
+    wall; medium space is the unit cube on the box interior."""
+    b = _Builder()
+    white = b.matte(kd=(0.73, 0.73, 0.73))
+    s = 1.0
+    b.add_quad([0, 0, 0], [s, 0, 0], [s, 0, -s], [0, 0, -s], white)
+    b.add_quad([0, 0, -s], [s, 0, -s], [s, s, -s], [0, s, -s], white)
+    e, c, y = 0.2, s / 2, s - 1e-3
+    b.area_light_quad([c - e, y, -c + e], [c - e, y, -c - e],
+                      [c + e, y, -c - e], [c + e, y, -c + e], radiance=(18.0, 18.0, 18.0))
+    # density: a gaussian column modulated by hashed noise
+    n = 32
+    z, yy, x = np.mgrid[0:n, 0:n, 0:n] / (n - 1.0)
+    base = np.exp(-((x - 0.5) ** 2 + (z - 0.5) ** 2) / 0.05) * (1.0 - yy) ** 0.5
+    zoom = np.kron(np.random.RandomState(4).rand(8, 8, 8), np.ones((4, 4, 4)))
+    dens = np.clip(base * (0.5 + zoom), 0.0, 1.0).astype(np.float32)
+    w2m = np.eye(4, dtype=np.float32)
+    w2m[2, 2] = -1.0     # world z in [-1, 0] -> medium z in [0, 1]
+    b.set_grid_medium(dens, sigma_a=(0.05,) * 3, sigma_s=(0.9,) * 3, g=0.0,
+                      world_to_medium=w2m, scale=8.0)
+    return b.build(resolve_device(device), tile)
 
 
 def cornell_sky(n_theta=32, n_phi=64):
@@ -292,6 +387,9 @@ def cornell_camera(resolution, device=None):
     """The Cornell box's perspective camera at resolution (h, w)."""
     c2w = tf.look_at_np(pos=[0.5, 0.5, 1.42], look=[0.5, 0.5, -0.5], up=[0.0, 1.0, 0.0])
     return cammod.make_perspective(c2w, 40.0, resolution, resolve_device(device))
+
+
+volumetric_camera = cornell_camera
 
 
 def bench_camera(resolution, device=None):

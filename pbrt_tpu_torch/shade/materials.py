@@ -36,14 +36,21 @@ class MaterialTable:
     kd_tex: torch.Tensor          # (M,) int64 texture id or -1
     kinds_present: tuple = ()
     tex_channels: tuple = ()      # channels with any texture: ("kd",) or ()
+    # per-material medium interface: the medium id a ray enters when it
+    # transmits into (against ng) / out of the surface, -1 = vacuum; None
+    # when no row sets one (volpath keeps the lane's medium)
+    med_inside: Optional[torch.Tensor] = None    # (M,) int64
+    med_outside: Optional[torch.Tensor] = None   # (M,) int64
 
 
 def materials_from_numpy(arrs, device):
     """MaterialTable from numpy columns: kind, kd, ks, kr, kt, roughness, eta,
-    sigma, remap_roughness, kd_tex and the texture ids of the channels
-    not ported (UNPORTED_CHANNELS, all -1), as the JAX package's
+    sigma, remap_roughness, kd_tex, the texture ids of the channels not
+    ported (UNPORTED_CHANNELS, all -1) and the medium interface columns
+    med_inside and med_outside (None, or (M,) ids), as the JAX package's
     build_materials lays them out. A table that leaves out one of those
-    channels is refused: a texture on it would be dropped without a word."""
+    channels or columns is refused: a texture or an interface would be
+    dropped without a word."""
     kind = np.asarray(arrs["kind"], np.int64)
     bad = sorted(set(kind.tolist()) - set(PORTED_KINDS))
     if bad:
@@ -55,20 +62,28 @@ def materials_from_numpy(arrs, device):
                                       "channels other than kd are not ported")
         if (np.asarray(arrs[ch]) >= 0).any():
             raise NotImplementedError(f"texture channel {ch} is not ported yet")
+    missing = [k for k in ("med_inside", "med_outside") if k not in arrs]
+    if missing:
+        raise NotImplementedError(f"the material table does not state {missing}: a "
+                                  "table must show its medium interfaces (None or ids)")
     t = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), device=device).to(dt)  # noqa: E731
+    iface = {k: None if arrs[k] is None else t(arrs[k], torch.int64)
+             for k in ("med_inside", "med_outside")}
     return MaterialTable(kind=t(kind, torch.int64), kd=t(arrs["kd"]), ks=t(arrs["ks"]),
                          kr=t(arrs["kr"]), kt=t(arrs["kt"]), roughness=t(arrs["roughness"]), eta=t(arrs["eta"]),
                          sigma=t(arrs["sigma"]),
                          remap_roughness=t(arrs["remap_roughness"], torch.bool),
                          kd_tex=t(kd_tex, torch.int64),
                          kinds_present=tuple(sorted(set(kind.tolist()))),
-                         tex_channels=("kd",) if (kd_tex >= 0).any() else ())
+                         tex_channels=("kd",) if (kd_tex >= 0).any() else (), **iface)
 
 
 def build_materials(rows, device):
     """Rows as the JAX package's SceneBuilder records them (dicts with
-    kind, kd, ks, kr, kt, roughness, eta, sigma, remap_roughness, kd_tex)."""
+    kind, kd, ks, kr, kt, roughness, eta, sigma, remap_roughness, kd_tex,
+    and med_inside / med_outside on rows with a medium interface)."""
     m = len(rows)
+    has_iface = any("med_inside" in r or "med_outside" in r for r in rows)
 
     def col(key, default, shape=()):
         out = np.zeros((m,) + shape, np.float32)
@@ -84,6 +99,8 @@ def build_materials(rows, device):
         eta=col("eta", 1.5), sigma=col("sigma", 0.0),
         remap_roughness=[bool(r.get("remap_roughness", True)) for r in rows],
         kd_tex=[r.get("kd_tex", -1) for r in rows],
+        **{k: [r.get(k, -1) for r in rows] if has_iface else None
+           for k in ("med_inside", "med_outside")},
         **{ch: [r.get(ch, -1) for r in rows] for ch in UNPORTED_CHANNELS}), device)
 
 

@@ -381,3 +381,76 @@ def test_cornell_direct_on_the_card_matches_the_cpu(card, light):
     diff = np.abs(imgs[0] - imgs[1])
     ok = (diff / np.maximum(np.abs(imgs[1]), 1e-2) < 2e-3).all(-1)
     assert ok.mean() >= 0.995 and abs(imgs[0].mean() - imgs[1].mean()) < 1e-3
+
+
+def _small_frame(integrator, dev, res=32, spp=2):
+    """A config-4 fog frame (volpath) or a config-2 box frame (Whitted)."""
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.core import samplers as smp
+    from pbrt_tpu_torch.integrate import driver, volpath, whitted
+    cfg = driver.RenderConfig(width=res, height=res, spp=spp, max_depth=5,
+                              sampler=smp.SamplerConfig(kind="zerotwo", spp=spp))
+    if integrator == "volpath":
+        scene, li = scenes.fog_scene(device=dev, tile=TILE), volpath.make_li(cfg)
+    else:
+        scene, li = scenes.cornell_spheres(True, "area", dev, tile=TILE), whitted.make_li(cfg)
+    cam = scenes.cornell_camera((res, res), dev)
+    return scene, lambda: driver.render(scene, cam, cfg, li)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator", ["volpath", "whitted"])
+def test_volpath_and_whitted_launches_and_image_on_the_card(card, integrator):
+    """Kernel launches a frame: volpath 6/6/0 (a primary and five fused
+    launches); Whitted 5 closest and 5 any hit per light row. The image
+    passes the pixel check against the plain versions on the CPU."""
+    kernels = (tkern.coverage, tkern.closest, tkern.occluded)
+    scene, frame = _small_frame(integrator, "cuda")
+    for k in kernels:
+        k.launches = 0
+    img = frame().cpu().numpy()
+    nl = scene.lights.count
+    want = (6, 6, 0) if integrator == "volpath" else (5 + 5 * nl, 5, 5 * nl)
+    assert tuple(k.launches for k in kernels) == want
+    ref = _small_frame(integrator, "cpu")[1]().numpy()
+    diff = np.abs(img - ref)
+    ok = (diff / np.maximum(np.abs(ref), 1e-2) < 2e-3).all(-1)
+    assert np.isfinite(img).all() and img.mean() > 0.1
+    assert ok.mean() >= 0.995 and abs(img.mean() - ref.mean()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_fused_volpath_launch_equals_plain_version(card):
+    """The first fused launch of a small fog frame (N extension and 2N
+    shadow lanes): coverage and closest hit bit for bit their plain
+    versions on every tile, equal test counts."""
+    sent = []
+    real = tcl._trace
+    tcl._trace = lambda cs, o, d, t_min, t_max, tile, flag=None: (
+        sent.append((o, d, t_min, t_max, flag)), real(cs, o, d, t_min, t_max, tile, flag))[1]
+    try:
+        scene, frame = _small_frame("volpath", "cuda", res=64)
+        frame()
+    finally:
+        tcl._trace = real
+    o, d, t_min, t_max, flag = sent[1]
+    n = sent[0][0].shape[0]
+    assert o.shape[0] == 3 * n and int(flag.sum()) == 2 * n
+    cs = scene.clusters
+    _, rays, flag_s = tcl.prepare(cs, o, d, t_min, t_max, TILE, flag)
+    n_live = int((rays[7] > rays[6]).sum())
+    nlt = torch.tensor([-(-n_live // TILE)], dtype=torch.int32, device="cuda")
+    c = [torch.zeros(1, dtype=torch.int64, device="cuda") for _ in range(4)]
+    tn, cb = tkern.coverage(rays, cs.bounds, nlt, cs.n_clusters, TILE, tests_run=c[0],
+                            tests_needed=c[1])
+    ptn, pcb = tkern.coverage_plain(rays, cs.bounds, nlt, cs.n_clusters, TILE,
+                                    tests_run=c[2], tests_needed=c[3])
+    assert torch.equal(tn, ptn) and torch.equal(cb, pcb)
+    assert int(c[0]) == int(c[1]) == int(c[2]) == int(c[3]) > 0
+    corder, tnear, counts, covbits = tcl.tile_cluster_order(cs, rays, TILE)
+    c = [torch.zeros(1, dtype=torch.int64, device="cuda") for _ in range(4)]
+    args = (cs.packed, rays, flag_s, corder, tnear, counts, covbits, TILE)
+    for a, b in zip(tkern.closest(*args, slot_tests=c[0], needed_tests=c[1]),
+                    tkern.closest_plain(*args, slot_tests=c[2], needed_tests=c[3])):
+        assert torch.equal(a, b)
+    assert int(c[0]) == int(c[2]) > 0 and int(c[1]) == int(c[3]) > 0

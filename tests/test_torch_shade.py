@@ -17,6 +17,7 @@ from scenes.bunny import mesh_scene
 
 from pbrt_tpu_torch import bridge
 from pbrt_tpu_torch.shade import materials as tmat
+from pbrt_tpu_torch.shade import media as tmedia
 from pbrt_tpu_torch.shade import textures as ttex
 from pbrt_tpu_torch.lights import lights as tlights
 
@@ -47,7 +48,11 @@ def scene_tree(js):
                        if js.light_distrib is not None else None),
         world_center=np.asarray(js.world_center),
         world_radius=float(js.world_radius), quad_count=n_quad,
-        instance_count=len(js.instances or ()))
+        instance_count=len(js.instances or ()),
+        media=a(js.media, tmedia.COLUMNS) if js.media is not None else None)
+    for k in ("med_inside", "med_outside"):
+        col = getattr(js.materials, k)
+        tree["materials"][k] = None if col is None else np.asarray(col)
     if js.textures is not None:
         tree["textures"] = a(js.textures, ("kind", "su", "sv", "atlas_slot", "atlas",
                                            "lvl_size", "lvl_off"))

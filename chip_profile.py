@@ -2,7 +2,7 @@
 """Where the time of one frame goes, on the GPU.
 
     python3 chip_profile.py [path|direct|ao|cornell|volpath|volpath_bench_fog|
-                             volpath_smoke|whitted ...]
+                             volpath_smoke|whitted|grad ...]
 
 Renders the bench frames of chip_smoke.py (512×512, 1 spp, zerotwo; path
 at depth 5 with compact_from=1, direct lighting with strategy "one",
@@ -20,6 +20,11 @@ torch.profiler. Prints the frame time, the device-busy share (sum of GPU
 kernel time over the profiled frame's wall time), the time of the CUDA
 tracing kernels (coverage's two passes each and together), the count of
 GPU kernel launches, and the top ops by device time and by count.
+`grad` is baseline config 5 at the bench scene's width: one training
+step (dist.sharding's, one rank) of the bench path frame with the white
+walls' and the blob's kd and the light's emit perturbed; three steps
+timed in their forward and backward halves, then each half under its own
+profile, with the same figures for each.
 Needs a GPU; prints the card's name and power limit.
 """
 import subprocess
@@ -92,7 +97,60 @@ def main():
         wli = whitted.make_li(wcfg, return_stats=True)
         frames["whitted"] = lambda: driver.render(wscene, wcam, wcfg, wli)
     for name in names:
-        profile_frame(torch, name, frames[name])
+        if name == "grad":
+            profile_grad(torch, dev)
+        else:
+            profile_frame(torch, name, frames[name])
+
+
+def profile_grad(torch, dev):
+    """Config 5's training step on the bench frame, forward and backward
+    timed and profiled apart."""
+    from torch.profiler import ProfilerActivity, profile
+    from pbrt_tpu_torch.core import samplers as smp
+    from pbrt_tpu_torch.diff import demo
+    from pbrt_tpu_torch.dist import sharding
+    from pbrt_tpu_torch.integrate import driver, path
+    from pbrt_tpu_torch.scenes import bench_camera, bench_scene
+
+    res = 512
+    cam = bench_camera((res, res), dev)
+    cfg = driver.RenderConfig(width=res, height=res, spp=1, max_depth=5,
+                              sampler=smp.SamplerConfig(kind="zerotwo", spp=1))
+    li = path.make_li(cfg, camera=cam, compact_from=1, return_stats=True)
+    step, sc, target = demo.training(bench_scene(6, dev), cam, cfg, li, demo.perturbed_bench,
+                                     sharding.make_mesh(1))
+
+    def halves():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, params, stats = step.forward(sc, cam, target)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step.backward(loss, params)
+        torch.cuda.synchronize()
+        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3, float(stats["rays_traced"])
+
+    halves()
+    times = [halves() for _ in range(FRAMES)]
+    rays = times[-1][2]
+    fb = [f + b for f, b, _ in times]
+    print(f"[grad] forward_ms={[round(f, 3) for f, _, _ in times]} "
+          f"backward_ms={[round(b, 3) for _, b, _ in times]} rays_per_step={rays:.0f} "
+          f"mrays_per_s_fwd_bwd={rays / (sum(fb) / len(fb) / 1e3) / 1e6:.3f}", flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_f:
+        t0 = time.perf_counter()
+        loss, params, _ = step.forward(sc, cam, target)
+        torch.cuda.synchronize()
+        wall_f = (time.perf_counter() - t0) * 1e3
+    report(torch, "grad_forward", prof_f, wall_f)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_b:
+        t0 = time.perf_counter()
+        step.backward(loss, params)
+        torch.cuda.synchronize()
+        wall_b = (time.perf_counter() - t0) * 1e3
+    report(torch, "grad_backward", prof_b, wall_b)
+    print(f"[grad] peak_memory_bytes={torch.cuda.max_memory_allocated()}", flush=True)
 
 
 def profile_frame(torch, name, frame):
@@ -116,6 +174,12 @@ def profile_frame(torch, name, frame):
         frame()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    report(torch, name, prof, wall_ms)
+
+
+def report(torch, name, prof, wall_ms):
+    """The device-busy share, the tracing kernels' device time, the GPU
+    launches and the top ops of one profiled stretch."""
     events = prof.events()
     dev_kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time for e in dev_kernels) / 1e3

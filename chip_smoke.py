@@ -72,6 +72,25 @@ Phases, each printing one line with its elapsed seconds:
   11. sample_li and pdf_li_area_scene of all eight light kinds, and
      build_spatial, on the card against the CPU (allclose on every lane
      but the ill-conditioned ones, by a float64 rule: check_lights);
+  15. baseline config 5, gradients: one Cornell training step
+     (dist.sharding.make_train_step on one rank, the demo's perturbed kd
+     and emit), path at depth 5 and direct lighting, 64×64, 2 spp: the
+     tracers on every wavefront the step sends (path: a primary and five
+     fused launches; direct: two closest-hit and one any-hit launch)
+     against their plain versions on every tile, and the launches a step
+     (6/6/0, 3/2/1); the backward pass launches no tracer;
+  16. the same path step at 16×16 on the card and on the CPU: the loss
+     and the kd and emit gradients at rtol GRAD_RTOL, atol GRAD_ATOL;
+  17. on a one-rank NCCL group: diff.demo at 256×256, 4 spp, depth 5,
+     zerotwo (20 steps of plain gradient descent at lr 4): the albedo
+     error under 0.5× and the emission error under 0.6× their starting
+     values, 6/6/0 launches a render;
+  18. config 5 at the bench scene's width: 512×512, 1 spp, path at depth
+     5, compact_from=1, the white walls' and the blob's kd and the
+     light's emit perturbed; one warm-up and four timed steps, the loss
+     falling at every step: forward, backward, update and step ms
+     (medians), rays a step, Mrays/s fwd+bwd, peak memory, launches a step
+     (6/6/0), the card's nvidia-smi line;
   7. the probe kernels (kernels/probes.py): the compaction probe at tiles
      256 and 1,024 against its plain version (val 0 and -0.0 on some
      lanes), its device time (torch.profiler) beside an empty kernel's;
@@ -921,6 +940,197 @@ def volpath_phases(kern, clmod, driver, smp, dev, tile, kernels):
     return by_path, frames_by
 
 
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# The card's gradients against the plain versions' on the CPU: the tracers
+# agree bit for bit, the rest rounds differently by an ulp or two (the
+# card's transcendentals, reduction order); measured 1.6e-6 relative at
+# most (H100, 16x16, 2 spp, depth 5), no sampling decision flipping
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
+
+
+def grad_phases(kern, clmod, driver, smp, dev, tile, kernels):
+    """Phases 15–18, baseline config 5 (inverse rendering): gradients by
+    path replay on torch.autograd, the tracers on detached rays, a
+    one-rank NCCL group for the sharded steps. Returns ({path tag: kernel
+    launches}, {path tag: steps})."""
+    import numpy as np
+    import torch
+    from pbrt_tpu_torch import scenes as scenes_mod
+    from pbrt_tpu_torch.diff import demo
+    from pbrt_tpu_torch.dist import multihost, sharding
+    from pbrt_tpu_torch.integrate import direct, path
+    by_path, steps_by = {}, {}
+
+    def counts():
+        return {k: fn.launches for k, fn in kernels.items()}
+
+    def cornell_step(d, res, spp, integrator):
+        """The demo's training step on device d, one rank: (step,
+        perturbed scene, camera, target)."""
+        cam = scenes_mod.cornell_camera((res, res), d)
+        cfg = driver.RenderConfig(width=res, height=res, spp=spp, max_depth=5,
+                                  sampler=smp.SamplerConfig(kind="zerotwo", spp=spp))
+        li = (path.make_li(cfg) if integrator == "path" else direct.make_li(cfg, "one"))
+        step, bad, target = demo.training(scenes_mod.cornell_spheres(device=d), cam, cfg, li,
+                                          demo.perturbed, sharding.make_mesh(1))
+        return step, bad, cam, target
+
+    # 15. the tracers on every wavefront a training step sends (path and
+    # direct, 64×64, 2 spp), every tile against the plain versions
+    for integrator, want, per_step in (
+            ("path", {"closest": 6, "occluded": 0}, {"coverage": 6, "closest": 6, "occluded": 0}),
+            ("direct", {"closest": 2, "occluded": 1},
+             {"coverage": 3, "closest": 2, "occluded": 1})):
+        t0 = time.perf_counter()
+        step, bad, cam, target = cornell_step(dev, 64, 2, integrator)
+        zero_launches(kernels)
+        sent = sent_wavefronts(clmod, lambda: step(bad, cam, target, 4.0))
+        tag = f"grad_wavefronts_{integrator}"
+        by_path[tag], steps_by[tag] = counts(), 1
+        held = check_sent(kern, clmod, bad.clusters, sent, tile, tag)
+        kinds = {k: sum(1 for h in held if h[0] == k) for k in ("closest", "occluded")}
+        log(tag, held=held, launches_per_step=by_path[tag],
+            seconds=f"{time.perf_counter() - t0:.2f}", all_tiles_equal=True)
+        if kinds != want or by_path[tag] != per_step:
+            fail(f"{tag}: a training step traced {kinds} wavefronts, expected {want}; "
+                 f"launches {by_path[tag]}, expected {per_step}")
+
+    # 16. the same step's gradients on the card and on the CPU, 16×16
+    t0 = time.perf_counter()
+    got = {}
+    for d in (dev, "cpu"):
+        step, bad, cam, target = cornell_step(d, 16, 2, "path")
+        loss, params, _ = step.forward(bad, cam, target)
+        grads = step.backward(loss, params)
+        got[str(d)] = (float(loss.detach()), {k: v.detach().cpu().numpy() for k, v in grads.items()})
+    (lg, gg), (lc, gc) = got[str(dev)], got["cpu"]
+    rel = {k: float(np.max(np.abs(gg[k] - gc[k]) / np.maximum(np.abs(gc[k]), 1e-12)))
+           for k in gg}
+    ok = all(np.allclose(gg[k], gc[k], rtol=GRAD_RTOL, atol=GRAD_ATOL) for k in gg) \
+        and abs(lg - lc) <= GRAD_RTOL * abs(lc) and all(np.isfinite(v).all() for v in gg.values())
+    log("grad_cpu_parity", resolution="16x16", spp=2, depth=5, loss_card=f"{lg:.9g}",
+        loss_cpu=f"{lc:.9g}", max_rel_diff=rel, rtol=GRAD_RTOL, atol=GRAD_ATOL,
+        kd_grad_card=np.round(gg["kd"], 6).tolist(), emit_grad_card=gg["emit"].tolist(),
+        seconds=f"{time.perf_counter() - t0:.2f}", passed=ok)
+    if not ok:
+        fail("grad_cpu_parity: the card's gradients disagree with the plain versions'")
+
+    multihost.ensure_initialized(f"127.0.0.1:{free_port()}", 1, 0, dev)
+    try:
+        mesh = sharding.make_mesh()
+        backend = sharding.BACKEND[dev.type]
+        if not mesh.grouped or torch.distributed.get_backend() != backend:
+            fail(f"inverse phases: no {backend} process group")
+        # 17. the config-5 demo at 256×256, 4 spp, depth 5, one NCCL rank
+        t0 = time.perf_counter()
+        zero_launches(kernels)
+        out = demo.run(size=256, depth=5, device=dev, mesh=mesh, log=None)
+        torch.cuda.synchronize()
+        renders = demo.STEPS + 1          # the target, then one forward a step
+        by_path["inverse_cornell"], steps_by["inverse_cornell"] = counts(), renders
+        secs = time.perf_counter() - t0
+        log("inverse_cornell", resolution="256x256", spp=demo.SPP, depth=5, steps=demo.STEPS,
+            lr=demo.LR, ranks=mesh.size, backend=backend,
+            albedo_err=f"{out['albedo_err0']:.4f}->{out['albedo_err1']:.4f}",
+            emit_err=f"{out['emit_err0']:.4f}->{out['emit_err1']:.4f}",
+            loss_first=f"{out['losses'][0]:.6f}", loss_last=f"{out['losses'][-1]:.6f}",
+            launches=counts(), renders=renders, seconds=f"{secs:.2f}",
+            ms_per_step=f"{secs * 1e3 / renders:.1f}", converged=out["converged"])
+        if not out["converged"]:
+            fail("inverse_cornell: the demo did not recover albedo and emission")
+        if counts() != {"coverage": 6 * renders, "closest": 6 * renders, "occluded": 0}:
+            fail(f"inverse_cornell: launches {counts()}, expected 6/6/0 a render")
+        by_path["inverse_bench"], steps_by["inverse_bench"] = inverse_bench(
+            driver, smp, dev, mesh, kernels)
+    finally:
+        multihost.shutdown()
+    return by_path, steps_by
+
+
+def zero_launches(kernels):
+    for k in kernels.values():
+        k.launches = 0
+
+
+def inverse_bench(driver, smp, dev, mesh, kernels, steps=4):
+    """Phase 18, config 5 at the bench scene's full width: 512×512, 1 spp,
+    path at depth 5 with compact_from=1, the white walls' and the blob's
+    kd and the quad light's emit perturbed; one warm-up and `steps` timed
+    steps, each timed in its three parts (host clock around
+    synchronize), the loss falling at every step. Returns (kernel
+    launches over the timed steps, steps)."""
+    import torch
+    from pbrt_tpu_torch.diff import demo
+    from pbrt_tpu_torch.integrate import path
+    from pbrt_tpu_torch.scenes import bench_camera, bench_scene
+    t0 = time.perf_counter()
+    res = 512
+    scene = bench_scene(6, dev)
+    cam = bench_camera((res, res), dev)
+    cfg = driver.RenderConfig(width=res, height=res, spp=1, max_depth=5,
+                              sampler=smp.SamplerConfig(kind="zerotwo", spp=1))
+    li = path.make_li(cfg, camera=cam, compact_from=1, return_stats=True)
+    step, sc, target = demo.training(scene, cam, cfg, li, demo.perturbed_bench, mesh)
+    lr = demo.LR
+
+    def one(sc):
+        """One step: (scene, loss, rays traced, (forward, backward, update,
+        step) ms)."""
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        loss, params, stats = step.forward(sc, cam, target)
+        torch.cuda.synchronize()
+        b = time.perf_counter()
+        grads = step.backward(loss, params)
+        torch.cuda.synchronize()
+        c = time.perf_counter()
+        sc = step.update(sc, params, grads, lr)
+        total = float(step.total_loss(loss))
+        torch.cuda.synchronize()
+        e = time.perf_counter()
+        return sc, total, float(stats["rays_traced"]), ((b - a) * 1e3, (c - b) * 1e3,
+                                                       (e - c) * 1e3, (e - a) * 1e3)
+
+    sc, loss, _, _ = one(sc)              # warm-up
+    losses, times = [loss], []
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(kernels)
+    for _ in range(steps):
+        sc, loss, rays, t = one(sc)
+        losses.append(loss)
+        times.append(t)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    fwd, bwd, upd, tot = (sorted(x)[len(x) // 2] for x in zip(*times))
+    mrays = rays / ((fwd + bwd) / 1e3) / 1e6
+    per_step = {k: v / steps for k, v in launches.items()}
+    log("inverse_bench", resolution=f"{res}x{res}", spp=1, depth=5, compact_from=1,
+        triangles=scene.tri.count, clusters=scene.clusters.n_clusters, lr=lr,
+        ranks=mesh.size, losses=[round(x, 6) for x in losses],
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    log("inverse_bench_ms", forward=f"{fwd:.3f}", backward=f"{bwd:.3f}", update=f"{upd:.3f}",
+        step=f"{tot:.3f}", median_of=steps,
+        all_steps=[[round(v, 3) for v in t] for t in times])
+    log("inverse_bench_rays", rays_per_step=rays)
+    log("inverse_bench_mrays_per_s_fwd_bwd", value=f"{mrays:.3f}")
+    log("inverse_bench_peak_memory", bytes=peak, gib=f"{peak / 2**30:.3f}")
+    log("inverse_bench_launches_per_step", **per_step)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    log("inverse_bench_card", nvidia_smi=f"'{smi}'")
+    if not all(losses[i + 1] < losses[i] for i in range(len(losses) - 1)):
+        fail(f"inverse_bench: the loss did not fall at every step: {losses}")
+    if per_step != {"coverage": 6, "closest": 6, "occluded": 0}:
+        fail(f"inverse_bench: launches a step {per_step}, expected 6/6/0")
+    return launches, steps
+
+
 def main():
     import numpy as np
     import torch
@@ -1065,7 +1275,8 @@ def main():
     from pbrt_tpu_torch import scenes as scenes_mod
     from pbrt_tpu_torch.lights import distrib, lights as lightsmod
     for part in (cornell_phases(kern, clmod, scenemod, driver, direct, path, smp, dev, tile),
-                 volpath_phases(kern, clmod, driver, smp, dev, tile, kernels)):
+                 volpath_phases(kern, clmod, driver, smp, dev, tile, kernels),
+                 grad_phases(kern, clmod, driver, smp, dev, tile, kernels)):
         by_path.update(part[0])
         frames_by.update(part[1])
     check_lights(scenes_mod, lightsmod, distrib, dev)

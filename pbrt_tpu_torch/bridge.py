@@ -95,3 +95,22 @@ def camera_from_numpy(cam, device=None):
         lens_radius=f("lens_radius"), focal_distance=f("focal_distance"),
         shutter_open=f("shutter_open"), shutter_close=f("shutter_close"),
         area=f("area"), resolution=tuple(int(x) for x in cam["resolution"]))
+
+
+def params_from_numpy(tree, device=None):
+    """Scene parameters as numpy (the JAX package's
+    diff.inverse.default_params with each leaf passed through np.asarray:
+    {"materials": {kd, ks, kr, kt, roughness, eta}, "lights": {emit}},
+    or any part of it) → the same dict of float32 tensors on `device`, the
+    form pbrt_tpu_torch.diff.inverse.apply_params takes."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return torch.tensor(np.array(tree, np.float32), device=device)
+
+
+def params_to_numpy(params):
+    """The port's parameter dict → the same dict of float32 numpy arrays."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    return params.detach().cpu().numpy().astype(np.float32)

@@ -144,12 +144,14 @@ def _merge_quadrics(scene: Scene, hit: Hit, o, d, t_min, t_max) -> Hit:
 
 
 def _finish(scene: Scene, o, d, t_min, t_max, tri_result) -> Hit:
+    """The hit record: wo = -d keeps d's gradient, the quadric pass gets
+    the rays detached as the triangle tracers do."""
     if tri_result is None:
         hit = _empty_hit(d)
     else:
         hit = hit_from_triangles(scene, d, t_max, tri_result)
     if scene.quad.count:
-        hit = _merge_quadrics(scene, hit, o, d, t_min, t_max)
+        hit = _merge_quadrics(scene, hit, o.detach(), d.detach(), t_min, t_max)
     return hit
 
 
@@ -159,10 +161,13 @@ def intersect(scene: Scene, o, d, active=None) -> Hit:
     t_min, t_max = _window(o.shape[0], active, o.device)
     res = None
     if scene.tri.count:
+        # visibility is detached (pbrt_tpu/diff/inverse.py:1-12): no gradient
+        # reaches the tracers, so the kernels and plain versions agree
+        o_, d_ = o.detach(), d.detach()
         if scene.clusters is not None:
-            res = clmod.intersect(scene.clusters, o, d, t_min, t_max, scene.tile)
+            res = clmod.intersect(scene.clusters, o_, d_, t_min, t_max, scene.tile)
         else:
-            res = trimod.intersect_brute(scene.tri, o, d, t_min, t_max)
+            res = trimod.intersect_brute(scene.tri, o_, d_, t_min, t_max)
     return _finish(scene, o, d, t_min, t_max, res)
 
 
@@ -170,10 +175,14 @@ def occluded(scene: Scene, o, d, t_min=None, t_max=None, active=None):
     """Any-hit (shadow) query for rays o, d (N, 3) with t in (t_min, t_max)
     (defaults RAY_EPS and INF; scalars or (N,)). Dead lanes (`active`
     false) get t_max = -1. Returns occ (N,) bool."""
+    # visibility is detached (pbrt_tpu/diff/inverse.py:1-12)
+    o, d = o.detach(), d.detach()
     n = o.shape[0]
     f = dict(dtype=torch.float32, device=o.device)
-    t_min = torch.broadcast_to(torch.as_tensor(RAY_EPS if t_min is None else t_min, **f), (n,))
-    t_max = torch.broadcast_to(torch.as_tensor(INF if t_max is None else t_max, **f), (n,))
+    t_min = torch.broadcast_to(torch.as_tensor(RAY_EPS if t_min is None else t_min, **f),
+                               (n,)).detach()
+    t_max = torch.broadcast_to(torch.as_tensor(INF if t_max is None else t_max, **f),
+                               (n,)).detach()
     if active is not None:
         t_max = torch.where(active, t_max, -1.0)
     occ = None
@@ -198,16 +207,19 @@ def intersect_occluded(scene: Scene, o, d, o_sh, d_sh, tmax_sh, active=None,
     """Fused closest hit (o, d) and shadow query (o_sh, d_sh) with t in
     (RAY_EPS, tmax_sh). Returns (Hit, occ)."""
     t_min, t_max = _window(o.shape[0], active, o.device)
+    # visibility is detached (pbrt_tpu/diff/inverse.py:1-12); wo keeps d's gradient
+    o_, d_ = o.detach(), d.detach()
+    o_sh, d_sh, tmax_sh = o_sh.detach(), d_sh.detach(), tmax_sh.detach()
     tmin_sh = torch.full_like(tmax_sh, RAY_EPS)
     if active_sh is not None:
         tmax_sh = torch.where(active_sh, tmax_sh, -1.0)
     res = occ = None
     if scene.tri.count:
         if scene.clusters is not None:
-            res, occ = clmod.intersect_occluded(scene.clusters, o, d, t_min, t_max,
+            res, occ = clmod.intersect_occluded(scene.clusters, o_, d_, t_min, t_max,
                                                 o_sh, d_sh, tmin_sh, tmax_sh, scene.tile)
         else:
-            res = trimod.intersect_brute(scene.tri, o, d, t_min, t_max)
+            res = trimod.intersect_brute(scene.tri, o_, d_, t_min, t_max)
             occ = trimod.occluded_brute(scene.tri, o_sh, d_sh, tmin_sh, tmax_sh)
     return (_finish(scene, o, d, t_min, t_max, res),
             _or_quadrics(scene, occ, o_sh, d_sh, tmin_sh, tmax_sh))

@@ -72,18 +72,36 @@ def render_batch(scene, camera, cfg: RenderConfig, li_fn, sample_lo, sample_hi):
     return render_lanes(scene, camera, cfg, li_fn, pixel_id, sample_idx)
 
 
+def accumulate(scene, camera, cfg: RenderConfig, li_fn, acc, wacc, sample_lo=0):
+    """Add samples [sample_lo, spp) to the film sums acc (H, W, 3) and
+    wacc (H, W), one batch of samples_per_batch at a time, each reduced to
+    per-pixel sums at once as the reference does, so memory does not grow
+    with spp. Yields (next sample, acc, wacc, the batch's rays_traced or
+    None) after each batch."""
+    h, w = cfg.height, cfg.width
+    batch = cfg.samples_per_batch or cfg.spp
+    for lo in range(sample_lo, cfg.spp, batch):
+        hi = min(lo + batch, cfg.spp)
+        r, wt = render_batch(scene, camera, cfg, li_fn, lo, hi)
+        rays = None
+        if isinstance(r, tuple):
+            r, stats = r
+            rays = stats["rays_traced"]
+        a, b = filmmod.sums(r, wt, h, w)
+        acc = acc + a
+        wacc = wacc + b
+        yield hi, acc, wacc, rays
+
+
 def render(scene, camera, cfg: RenderConfig, li_fn):
     """Full render → (H, W, 3) image. With an li_fn that returns
     (radiance, stats), returns (image, {"rays_traced": summed over the
     sample batches})."""
-    batch = cfg.samples_per_batch or cfg.spp
-    rads, wts, rays = [], [], None
-    for lo in range(0, cfg.spp, batch):
-        r, w = render_batch(scene, camera, cfg, li_fn, lo, min(lo + batch, cfg.spp))
-        if isinstance(r, tuple):
-            r, stats = r
-            rays = stats["rays_traced"] if rays is None else rays + stats["rays_traced"]
-        rads.append(r)
-        wts.append(w)
-    img = filmmod.develop(torch.cat(rads), torch.cat(wts), cfg.height, cfg.width)
+    acc = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32, device=scene.device)
+    wacc = torch.zeros((cfg.height, cfg.width), dtype=torch.float32, device=scene.device)
+    rays = None
+    for _, acc, wacc, r in accumulate(scene, camera, cfg, li_fn, acc, wacc):
+        if r is not None:
+            rays = r if rays is None else rays + r
+    img = filmmod.resolve(acc, wacc)
     return img if rays is None else (img, {"rays_traced": rays})

@@ -454,3 +454,45 @@ def test_fused_volpath_launch_equals_plain_version(card):
                     tkern.closest_plain(*args, slot_tests=c[2], needed_tests=c[3])):
         assert torch.equal(a, b)
     assert int(c[0]) == int(c[2]) > 0 and int(c[1]) == int(c[3]) > 0
+
+
+def _cornell_train_step(device, res=16, spp=2):
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.core import samplers as smp
+    from pbrt_tpu_torch.diff import demo
+    from pbrt_tpu_torch.dist import sharding
+    from pbrt_tpu_torch.integrate import driver, path
+    scene = scenes.cornell_spheres(device=device, tile=TILE)
+    cam = scenes.cornell_camera((res, res), device)
+    cfg = driver.RenderConfig(width=res, height=res, spp=spp, max_depth=5,
+                              sampler=smp.SamplerConfig(kind="zerotwo", spp=spp))
+    step, bad, target = demo.training(scene, cam, cfg, path.make_li(cfg), demo.perturbed,
+                                      sharding.make_mesh(1))
+    return step, bad, cam, target
+
+
+@pytest.mark.cuda
+def test_training_step_on_the_card_matches_the_cpu(card):
+    """One Cornell training step (path, depth 5, 16×16, 2 spp): the
+    forward launches coverage and closest hit six times each, the
+    backward launches no tracer, and the loss and the kd and emit
+    gradients equal the plain versions' on the CPU at rtol 1e-4, atol
+    1e-6 (chip_smoke.py's grad_cpu_parity)."""
+    kernels = (tkern.coverage, tkern.closest, tkern.occluded)
+    got = []
+    for dev in ("cuda", "cpu"):
+        step, bad, cam, target = _cornell_train_step(dev)
+        for k in kernels:
+            k.launches = 0
+        loss, params, _ = step.forward(bad, cam, target)
+        fwd = tuple(k.launches for k in kernels)
+        grads = step.backward(loss, params)
+        assert tuple(k.launches for k in kernels) == fwd
+        if dev == "cuda":
+            assert fwd == (6, 6, 0)
+        got.append((float(loss.detach()), {k: v.cpu().numpy() for k, v in grads.items()}))
+    (lg, gg), (lc, gc) = got
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    for k in ("kd", "emit"):
+        assert np.isfinite(gg[k]).all() and np.abs(gg[k]).max() > 1e-4
+        np.testing.assert_allclose(gg[k], gc[k], rtol=1e-4, atol=1e-6, err_msg=k)

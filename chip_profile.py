@@ -2,7 +2,7 @@
 """Where the time of one frame goes, on the GPU.
 
     python3 chip_profile.py [path|direct|ao|cornell|volpath|volpath_bench_fog|
-                             volpath_smoke|whitted|grad ...]
+                             volpath_smoke|whitted|grad|bdpt|sppm|mlt|spectral ...]
 
 Renders the bench frames of chip_smoke.py (512×512, 1 spp, zerotwo; path
 at depth 5 with compact_from=1, direct lighting with strategy "one",
@@ -14,10 +14,16 @@ wavefronts of pbrt_tpu_torch.scenes.CORNELL_SPP_BATCH samples), or
 4 spp in one wavefront, zerotwo), `volpath_bench_fog` and `volpath_smoke`
 (the bench scene in fog and the smoke box, 512×512, 1 spp), or `whitted`
 (config 2's box, Whitted at depth 5, 256×256 at 16 spp in one wavefront),
-through pbrt_tpu_torch: for each, one warm-up, three frames timed with the host
-clock around torch.cuda.synchronize(), then one frame under
-torch.profiler. Prints the frame time, the device-busy share (sum of GPU
-kernel time over the profiled frame's wall time), the time of the CUDA
+or `bdpt` (the bench scene, 512×512, 1 spp, depth 5, random sampler), `sppm`
+(the bench scene, 512×512, depth 5, 4 iterations of 262,144 photons, the
+grid gather), `mlt` (config 2's box, 256×256, depth 5, 262,144 bootstrap
+samples, 65,536 chains, 4 mutations a pixel) or `spectral` (config 2's box
+in the spectral mode, path at depth 5, 256×256, 16 spp, 12 bins), the
+frames of chip_smoke.py phases 19–22, through pbrt_tpu_torch: for each,
+one warm-up, three frames timed with the host clock around
+torch.cuda.synchronize(), then one frame under torch.profiler. Prints the
+frame time, the device-busy share (sum of GPU kernel time over the
+profiled frame's wall time), the time of the CUDA
 tracing kernels (coverage's two passes each and together), the count of
 GPU kernel launches, and the top ops by device time and by count.
 `grad` is baseline config 5 at the bench scene's width: one training
@@ -40,7 +46,8 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_profile.py needs a GPU")
     from pbrt_tpu_torch.core import samplers as smp
-    from pbrt_tpu_torch.integrate import ao, direct, driver, path, volpath, whitted
+    from pbrt_tpu_torch.integrate import (ao, bdpt, direct, driver, mlt, path, spectral, sppm,
+                                          volpath, whitted)
     from pbrt_tpu_torch.kernels import cluster_cuda as kern
     from pbrt_tpu_torch.scenes import (CORNELL_RES, CORNELL_SPP, CORNELL_SPP_BATCH,
                                        bench_camera, bench_fog_scene, bench_scene,
@@ -96,6 +103,26 @@ def main():
                                    sampler=smp.SamplerConfig(kind="zerotwo", spp=16))
         wli = whitted.make_li(wcfg, return_stats=True)
         frames["whitted"] = lambda: driver.render(wscene, wcam, wcfg, wli)
+    if set(names) & {"bdpt", "sppm"}:
+        iscene = bench_scene(6, dev)
+        icam = bench_camera((512, 512), dev)
+        bcfg = bdpt.BDPTConfig(width=512, height=512, spp=1, max_depth=5,
+                               sampler=smp.SamplerConfig(kind="random", spp=1))
+        frames["bdpt"] = lambda: bdpt.render(iscene, icam, bcfg, return_stats=True)
+        scfg = sppm.SPPMConfig(width=512, height=512, n_iterations=4, photons_per_iter=262144,
+                               max_depth=5, gather="auto", return_stats=True)
+        frames["sppm"] = lambda: sppm.render(iscene, icam, scfg)
+    if set(names) & {"mlt", "spectral"}:
+        mscene = cornell_spheres(True, "area", dev)
+        mcam = cornell_camera((256, 256), dev)
+        mcfg = mlt.MLTConfig(width=256, height=256, max_depth=5, n_bootstrap=262144,
+                             n_chains=65536, mutations_per_pixel=4)
+        frames["mlt"] = lambda: mlt.render(mscene, mcam, mcfg, return_stats=True)
+        pcfg = driver.RenderConfig(width=256, height=256, spp=16, max_depth=5,
+                                   sampler=smp.SamplerConfig(kind="zerotwo", spp=16))
+        pli = lambda c: path.make_li(c, camera=mcam, compact_from=1,   # noqa: E731
+                                     return_stats=True)
+        frames["spectral"] = lambda: spectral.render_spectral(mscene, mcam, pcfg, pli, 12)[1:]
     for name in names:
         if name == "grad":
             profile_grad(torch, dev)

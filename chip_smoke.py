@@ -91,6 +91,30 @@ Phases, each printing one line with its elapsed seconds:
      falling at every step: forward, backward, update and step ms
      (medians), rays a step, Mrays/s fwd+bwd, peak memory, launches a step
      (6/6/0), the card's nvidia-smi line;
+  19. BDPT on the bench scene, 512×512, 1 spp, depth 5, random sampler
+     (262,144 camera and 262,144 light subpaths): every tracer launch of a
+     frame (11 closest hit, 20 any hit) held to its plain version on 32
+     tiles spread over it; the splat scatter timed on a frame's own inputs
+     (its five t=1 strategies) and run twice to the same image; one
+     warm-up and two timed frames, the launches 31/11/20 a frame;
+  20. SPPM on the bench scene, 512×512, depth 5, 4 iterations of 262,144
+     photons, the hash-grid gather: the first photon-pass launch held the
+     same way; two timed frames, launches 80/60/20, photons dropped;
+  21. MLT on config 2's box, 256×256, depth 5, 262,144 bootstrap samples,
+     65,536 chains, 4 mutations a pixel: two timed frames, launches
+     36/36/0 (six path.li calls of six closest-hit launches); every frame
+     (the warm-up and the profiled one too) the same image, and the scan
+     of the bootstrap luminances' cdf (sampling.prefix_sum) the same in 20
+     runs and equal to the CPU's, timed beside torch's cumsum, whose
+     differing runs are counted;
+  22. path on config 2's box in the spectral mode, 256×256, 16 spp, depth
+     5, 12 bins (four renders of 1,048,576 lanes): two timed frames,
+     launches 24/24/0;
+     phases 19–22 each print ms, rays and Mrays/s, one profiled frame's GPU
+     launches, peak memory, 0 NaN and the card's nvidia-smi line;
+  23. at 16×16 on the card against the plain versions on the CPU (the pixel
+     check): BDPT on the area- and env-lit Cornell boxes and the fog box,
+     SPPM (grid), MLT on the specular box, the spectral mode;
   7. the probe kernels (kernels/probes.py): the compaction probe at tiles
      256 and 1,024 against its plain version (val 0 and -0.0 on some
      lanes), its device time (torch.profiler) beside an empty kernel's;
@@ -940,6 +964,233 @@ def volpath_phases(kern, clmod, driver, smp, dev, tile, kernels):
     return by_path, frames_by
 
 
+def gpu_launches(fn):
+    """GPU kernels one call of fn() launches, counted by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def integrator_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line):
+    """Phases 19–23: BDPT, SPPM, MLT and the spectral mode. BDPT on the
+    bench scene (512×512, 1 spp, depth 5): every tracer launch of a frame
+    held to its plain version on PLAIN_TILES tiles spread over it, the
+    splat scatter timed on a frame's own inputs; SPPM on the bench scene
+    (512×512, depth 5, 4 iterations of 262,144 photons, the grid gather):
+    the first photon-pass launch held the same way; MLT on config 2's box
+    (256×256, depth 5, 262,144 bootstrap samples, 65,536 chains, 4
+    mutations a pixel: every frame the same image, its cdf scan repeatable
+    and the CPU's); path on config 2's box in the spectral mode
+    (256×256, 16 spp, depth 5, 12 bins: four renders of 1,048,576 lanes).
+    Each: one warm-up and two timed frames (host clock around synchronize),
+    the launches a frame exact, one profiled frame's GPU launches, 0 NaN,
+    peak memory. Then each at 16×16 on the card against the plain
+    versions on the CPU (the pixel check): BDPT on the area- and env-lit
+    boxes and the fog box, SPPM, MLT and the spectral mode. Returns
+    ({path: kernel launches}, {path: frames})."""
+    import numpy as np
+    import torch
+    from pbrt_tpu_torch import scenes as scenes_mod
+    from pbrt_tpu_torch.film import film as filmmod
+    from pbrt_tpu_torch.core.sampling import prefix_sum
+    from pbrt_tpu_torch.integrate import bdpt, mlt, path, spectral, sppm
+    by_path, frames_by = {}, {}
+
+    def frame_phase(tag, key, frame, want, lanes, extra=None):
+        """frame() → (image, stats); `want` the kernel launches a frame."""
+        t0 = time.perf_counter()
+        frames = 2
+        torch.cuda.reset_peak_memory_stats()
+        (img, stats), ms, launches = timed_frames(frame, kernels, frames)
+        rays = float(stats["rays_traced"])
+        n_gpu = gpu_launches(frame)
+        per_frame = {k: v // frames for k, v in launches.items()}
+        n_nan = int(torch.isnan(img).sum())
+        by_path[key], frames_by[key] = launches, frames
+        log(tag, lanes=lanes, frame_ms=[round(t, 3) for t in ms],
+            rays_per_frame=rays, mrays_per_s=f"{rays * frames / sum(ms) / 1e3:.3f}",
+            gpu_launches_per_frame=n_gpu, launches_per_frame=per_frame,
+            peak_memory_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+            image_mean=f"{float(img.mean()):.6f}", nan=n_nan, card=f"'{smi_line}'",
+            **(extra or {}), seconds=f"{time.perf_counter() - t0:.2f}")
+        if n_nan or not bool(torch.isfinite(img).all()):
+            fail(f"{tag}: image is not finite")
+        if per_frame != want or any(v % frames for v in launches.values()):
+            fail(f"{tag}: launches over {frames} frames {launches}, expected {want} a frame")
+
+    def hold(tag, scene, run, want, first=None):
+        """The wavefronts run() sends, in order: `want` their (kind, lanes);
+        the first `first` (all for None) held on PLAIN_TILES tiles each."""
+        t0 = time.perf_counter()
+        sent = sent_wavefronts(clmod, run)
+        shapes = [(k, int(w[0].shape[0])) for k, w in sent]
+        if shapes != want:
+            fail(f"{tag}: traced {shapes}, expected {want}")
+        held = check_sent(kern, clmod, scene.clusters, sent[:first], tile, tag, PLAIN_TILES)
+        del sent
+        log(f"{tag}_wavefronts", held=held, compared_tiles_each=PLAIN_TILES,
+            seconds=f"{time.perf_counter() - t0:.2f}", all_compared_equal=True)
+
+    def parity(tag, make_scene, make_cam, render):
+        """render(scene, camera) on the card and on the CPU, the pixel check."""
+        t0 = time.perf_counter()
+        imgs = [render(make_scene(d), make_cam((16, 16), d)).cpu().numpy()
+                for d in (dev, "cpu")]
+        frac, mdiff, ok = pixel_check(*imgs)
+        log(tag, pixels_within_tol=f"{frac:.4f}", mean_diff=f"{mdiff:.3e}",
+            mean=f"{imgs[0].mean():.6f}", seconds=f"{time.perf_counter() - t0:.2f}",
+            passed=ok)
+        if not ok or not np.isfinite(imgs[0]).all() or imgs[0].mean() <= 0:
+            fail(f"{tag}: the render through the kernels disagrees with the plain versions")
+
+    res, mres, depth = 512, 256, 5     # the bench cells' width, config 2's box's, the depth
+    n = res * res
+    bench = scenes_mod.bench_scene(6, dev)
+    bcam = scenes_mod.bench_camera((res, res), dev)
+
+    # 19. BDPT on the bench scene: at depth 5, 6 + 5 walk steps (closest hit)
+    # and 20 connections (any hit: 5 s=1, 10 s>=2 t>=2, 5 t=1)
+    bcfg = bdpt.BDPTConfig(width=res, height=res, spp=1, max_depth=depth,
+                           sampler=smp.SamplerConfig(kind="random", spp=1))
+    n_conn = sum(1 for t in range(2, depth + 3) for s in range(1, depth + 2)
+                 if s + t - 2 <= depth) + depth
+    hold("bdpt_bench", bench, lambda: bdpt.render(bench, bcam, bcfg),
+         [("closest", n)] * (2 * depth + 1) + [("occluded", n)] * n_conn)
+    # the splat scatter on a frame's own inputs (its t=1 strategies), timed
+    # and run twice
+    splat_in, real_splat = [], filmmod.add_splats
+
+    def record_splat(splats, pfilm, value, enabled=None):
+        splat_in.append((pfilm, value, enabled))
+        return real_splat(splats, pfilm, value, enabled)
+
+    filmmod.add_splats = record_splat
+    try:
+        bdpt.render(bench, bcam, bcfg)
+    finally:
+        filmmod.add_splats = real_splat
+
+    def splat_frame():
+        out = torch.zeros((res, res, 3), device=dev)
+        for args in splat_in:
+            out = filmmod.add_splats(out, *args)
+        return out
+
+    splat_ms = cuda_ms(splat_frame, 10) / len(splat_in)
+    same = torch.equal(splat_frame(), splat_frame())
+    frame_phase("bdpt_bench", "bdpt", lambda: bdpt.render(bench, bcam, bcfg, return_stats=True),
+                {"coverage": 2 * depth + 1 + n_conn, "closest": 2 * depth + 1,
+                 "occluded": n_conn}, n,
+                dict(splat_ms_per_call=f"{splat_ms:.4f}", splat_calls=len(splat_in),
+                     splat_lanes=n, splat_repeatable=same))
+    if not same:
+        fail("bdpt_bench: the splat scatter gave two different images")
+
+    # 20. SPPM on the bench scene, the grid gather; a photon pass is 5 closest-hit
+    # launches, a camera pass 5 closest-hit and 5 (direct lighting) of each tracer
+    scfg = sppm.SPPMConfig(width=res, height=res, n_iterations=4, photons_per_iter=n,
+                           max_depth=depth, gather="auto", return_stats=True)
+    if sppm.gather_method(scfg) != "grid":
+        fail("sppm_bench: the gather should be the grid")
+    hold("sppm_bench_photons", bench, lambda: sppm._photon_pass(bench, scfg, 0),
+         [("closest", n)] * depth, first=1)
+    dropped = {}
+
+    def sppm_frame():
+        img, stats = sppm.render(bench, bcam, scfg)
+        dropped["n"] = stats["photons_dropped"]
+        return img, stats
+
+    frame_phase("sppm_bench", "sppm", sppm_frame,
+                {"coverage": 16 * depth, "closest": 12 * depth, "occluded": 4 * depth}, n,
+                dict(gather="grid", iterations=4, photons_per_iter=n))
+    log("sppm_bench_photons_dropped", photons_dropped=dropped["n"],
+        max_photons_per_cell=scfg.max_photons_per_cell)
+    del bench
+
+    # 21. MLT on config 2's box: path.li six closest-hit launches a call, one
+    # bootstrap call, one for the seeded chains, one a mutation
+    box = scenes_mod.cornell_spheres(True, "area", dev)
+    mcam = scenes_mod.cornell_camera((mres, mres), dev)
+    mcfg = mlt.MLTConfig(width=mres, height=mres, max_depth=depth, n_bootstrap=4 * mres * mres,
+                         n_chains=mres * mres, mutations_per_pixel=4)
+    mlt_imgs = []
+
+    def mlt_frame():
+        img, stats = mlt.render(box, mcam, mcfg, return_stats=True)
+        mlt_imgs.append(img)
+        return img, stats
+
+    frame_phase("mlt_specular", "mlt", mlt_frame,
+                {"coverage": (2 + 4) * (depth + 1), "closest": (2 + 4) * (depth + 1),
+                 "occluded": 0}, mcfg.n_chains,
+                dict(bootstrap=mcfg.n_bootstrap, chains=mcfg.n_chains, mutations=4))
+    # every frame the same image; the scan behind the chains' seeding (the
+    # bootstrap luminances' cdf) against torch's cumsum, each run 20 times
+    row = torch.rand(mcfg.n_bootstrap + 1, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(21))
+
+    def runs_differing(scan):
+        first = scan(row)
+        return sum(int(not torch.equal(scan(row), first)) for _ in range(20))
+
+    same_frames = all(torch.equal(mlt_imgs[0], im) for im in mlt_imgs[1:])
+    scan_differing = runs_differing(prefix_sum)
+    scan_cpu = torch.equal(prefix_sum(row).cpu(), prefix_sum(row.cpu()))
+    log("mlt_specular_repeatable", frames=len(mlt_imgs), images_equal=same_frames,
+        scan_n=row.numel(), scan_runs_differing=scan_differing, scan_card_equals_cpu=scan_cpu,
+        scan_ms=f"{cuda_ms(lambda: prefix_sum(row), 20):.4f}",
+        cumsum_runs_differing=runs_differing(lambda x: torch.cumsum(x, -1)),
+        cumsum_ms=f"{cuda_ms(lambda: torch.cumsum(row, -1), 20):.4f}")
+    if not same_frames or scan_differing or not scan_cpu:
+        fail("mlt_specular: frames or the cdf scan differ from run to run, or the scan from the CPU's")
+    del mlt_imgs
+
+    # 22. the spectral mode: path on config 2's box, four renders of three bins
+    spp = 16
+    pcfg = driver.RenderConfig(width=mres, height=mres, spp=spp, max_depth=depth,
+                               sampler=smp.SamplerConfig(kind="zerotwo", spp=spp))
+
+    def spectral_frame():
+        _, rgb, stats = spectral.render_spectral(
+            box, mcam, pcfg, lambda c: path.make_li(c, camera=mcam, compact_from=1,
+                                                    return_stats=True), 12)
+        return rgb, stats
+
+    frame_phase("spectral_cornell", "spectral", spectral_frame,
+                {"coverage": 4 * (depth + 1), "closest": 4 * (depth + 1), "occluded": 0},
+                mres * mres * spp,
+                dict(bins=12, renders=4))
+    del box
+
+    # 23. 16×16: the card against the plain versions on the CPU
+    c16 = bdpt.BDPTConfig(width=16, height=16, spp=4, max_depth=depth,
+                          sampler=smp.SamplerConfig(kind="random", spp=4))
+    for light in ("area", "env"):
+        parity(f"bdpt_cornell_{light}_16x16",
+               lambda d, light=light: scenes_mod.cornell_spheres(False, light, d),
+               scenes_mod.cornell_camera, lambda s, c: bdpt.render(s, c, c16))
+    parity("bdpt_fog_16x16", lambda d: scenes_mod.fog_scene(device=d),
+           scenes_mod.volumetric_camera, lambda s, c: bdpt.render(s, c, c16))
+    s16 = sppm.SPPMConfig(width=16, height=16, n_iterations=2, photons_per_iter=4096,
+                          max_depth=depth, gather="grid")
+    parity("sppm_cornell_16x16", lambda d: scenes_mod.cornell_spheres(False, "area", d),
+           scenes_mod.cornell_camera, lambda s, c: sppm.render(s, c, s16))
+    m16 = mlt.MLTConfig(width=16, height=16, max_depth=depth, n_bootstrap=4096, n_chains=256,
+                        mutations_per_pixel=4)
+    parity("mlt_specular_16x16", lambda d: scenes_mod.cornell_spheres(True, "area", d),
+           scenes_mod.cornell_camera, lambda s, c: mlt.render(s, c, m16))
+    p16 = driver.RenderConfig(width=16, height=16, spp=4, max_depth=depth,
+                              sampler=smp.SamplerConfig(kind="zerotwo", spp=4))
+    parity("spectral_cornell_16x16", lambda d: scenes_mod.cornell_spheres(True, "area", d),
+           scenes_mod.cornell_camera,
+           lambda s, c: spectral.render_spectral(s, c, p16, path.make_li, 12)[1])
+    return by_path, frames_by
+
+
 def free_port():
     import socket
     with socket.socket() as s:
@@ -1276,7 +1527,8 @@ def main():
     from pbrt_tpu_torch.lights import distrib, lights as lightsmod
     for part in (cornell_phases(kern, clmod, scenemod, driver, direct, path, smp, dev, tile),
                  volpath_phases(kern, clmod, driver, smp, dev, tile, kernels),
-                 grad_phases(kern, clmod, driver, smp, dev, tile, kernels)):
+                 grad_phases(kern, clmod, driver, smp, dev, tile, kernels),
+                 integrator_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line)):
         by_path.update(part[0])
         frames_by.update(part[1])
     check_lights(scenes_mod, lightsmod, distrib, dev)

@@ -5,8 +5,9 @@ package's Scene, QuadricSoA, ClusterSet, MaterialTable, TextureTable,
 LightTable, SpatialLightDistribution and MediumTable fields flattened to
 dicts by the caller — and returns the port's Scene,
 so both packages can render the very same scene. `camera_from_numpy`
-does the same for a perspective camera. Nothing here imports the JAX
-package."""
+does the same for a perspective camera, and `bdpt_config`, `sppm_config`
+and `mlt_config` for the integrators' configs. Nothing here imports the
+JAX package."""
 from __future__ import annotations
 
 import numpy as np
@@ -15,9 +16,13 @@ import torch
 from . import resolve_device
 from .cameras.cameras import PerspectiveCamera
 from .core import transform as tf
+from .core.samplers import SamplerConfig
 from .geom import cluster as clmod
 from .geom.scene import Scene
 from .geom.types import quadrics_from_numpy, triangles_from_numpy
+from .integrate.bdpt import BDPTConfig
+from .integrate.mlt import MLTConfig
+from .integrate.sppm import SPPMConfig
 from .lights.distrib import spatial_from_numpy
 from .lights.lights import lights_from_numpy
 from .shade.materials import materials_from_numpy
@@ -114,3 +119,30 @@ def params_to_numpy(params):
     if isinstance(params, dict):
         return {k: params_to_numpy(v) for k, v in params.items()}
     return params.detach().cpu().numpy().astype(np.float32)
+
+
+def _config(cfg, cls):
+    """A config NamedTuple of the JAX package → the port's `cls`, field
+    for field (its sampler too). A config whose fields differ is refused."""
+    fields = dict(cfg._asdict())
+    if set(fields) != set(cls._fields):
+        raise ValueError(f"{type(cfg).__name__} has fields {sorted(fields)}; "
+                         f"{cls.__name__} has {sorted(cls._fields)}")
+    if "sampler" in fields:
+        fields["sampler"] = SamplerConfig(**fields["sampler"]._asdict())
+    return cls(**fields)
+
+
+def bdpt_config(cfg):
+    """The JAX package's integrate.bdpt.BDPTConfig → the port's."""
+    return _config(cfg, BDPTConfig)
+
+
+def sppm_config(cfg):
+    """The JAX package's integrate.sppm.SPPMConfig → the port's."""
+    return _config(cfg, SPPMConfig)
+
+
+def mlt_config(cfg):
+    """The JAX package's integrate.mlt.MLTConfig → the port's."""
+    return _config(cfg, MLTConfig)

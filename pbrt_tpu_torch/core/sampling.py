@@ -7,7 +7,21 @@ from typing import NamedTuple
 import torch
 
 from . import vecmath as vm
-from .types import INV_2PI, PI, PI_OVER_2, PI_OVER_4, f32, find_interval, safe_sqrt
+from .types import INV_2PI, INV_PI, PI, PI_OVER_2, PI_OVER_4, f32, find_interval, safe_sqrt
+
+
+def prefix_sum(x):
+    """Inclusive sum along the last axis: a Hillis–Steele scan of
+    elementwise float64 adds, rounded once to x's dtype, so the same bits
+    on every device and in every run (torch's CUDA cumsum of floats joins
+    a long row's tiles in the order they finish, and its rounding changes
+    from run to run), and on the CPU those of torch.cumsum, which sums in
+    float64 too, but for a rare tie."""
+    y, n, k = x.to(torch.float64), x.shape[-1], 1
+    while k < n:
+        y = torch.cat([y[..., :k], y[..., k:] + y[..., :n - k]], -1)
+        k *= 2
+    return y.to(x.dtype)
 
 
 def uniform_sample_hemisphere(u):
@@ -34,6 +48,10 @@ def uniform_sample_cone(u, cos_theta_max):
     return vm.spherical_direction(sin_theta, cos_theta, 2.0 * PI * u[..., 1])
 
 
+def uniform_cone_pdf(cos_theta_max):
+    return 1.0 / (2.0 * PI * torch.clamp(1.0 - cos_theta_max, min=f32(1e-9)))
+
+
 def concentric_sample_disk(u):
     """Shirley–Chiu concentric disk warp, branch-free."""
     ox = 2.0 * u[..., 0] - 1.0
@@ -53,6 +71,10 @@ def cosine_sample_hemisphere(u):
     d = concentric_sample_disk(u)
     z = safe_sqrt(1.0 - d[..., 0] ** 2 - d[..., 1] ** 2)
     return torch.stack([d[..., 0], d[..., 1], z], -1)
+
+
+def cosine_hemisphere_pdf(cos_theta):
+    return cos_theta * INV_PI
 
 
 def power_heuristic(nf, f_pdf, ng, g_pdf):
@@ -82,7 +104,7 @@ class Distribution1D(NamedTuple):
     def build(func):
         func = torch.clamp(func.to(torch.float32), min=0.0)
         n = func.shape[-1]
-        cdf = torch.cumsum(func, -1) / n
+        cdf = prefix_sum(func) / n
         func_int = cdf[..., -1]
         safe_int = torch.where(func_int > 0.0, func_int, 1.0)
         ramp = torch.arange(1, n + 1, dtype=torch.float32, device=func.device) / n

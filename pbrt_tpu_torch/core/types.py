@@ -44,9 +44,11 @@ def safe_sqrt(x):
 
 def find_interval(cdf, x):
     """Index i with cdf[..., i] <= x < cdf[..., i+1], clamped to a valid
-    interval (comparison-sum form, as in the JAX package)."""
+    interval: the count of cdf entries <= x, less one, as the JAX package
+    counts it. cdf is sorted (a cumsum): one (M,) cdf shared by every x, or
+    one per lane (..., M) for x (...,)."""
     n = cdf.shape[-1]
-    idx = (cdf <= x[..., None]).to(torch.int64).sum(-1) - 1
+    idx = torch.searchsorted(cdf, x[..., None].contiguous(), right=True)[..., 0] - 1
     return torch.clamp(idx, 0, n - 2)
 
 

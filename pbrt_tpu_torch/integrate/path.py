@@ -13,7 +13,9 @@ pbrt_tpu/integrate/path.py: `li`).
 Wavefront compaction (`compact_from`) shrinks the lane count on a static
 schedule by keeping a uniformly random subset of the live lanes, scaled by
 live/kept, so the estimator stays unbiased. Every random number is keyed
-by (pixel, sample, dim), so lanes can be reordered freely.
+by (pixel, sample, dim), so lanes can be reordered freely. A `provider`
+(MLT's primary-sample vectors) replaces the sampler: it maps (bounce,
+slot) to the lanes' uniforms, and compaction is off under it.
 """
 from __future__ import annotations
 
@@ -73,6 +75,18 @@ def _gather_packed(order, arrays):
     return res
 
 
+def default_provider(cfg, pixel_id, sample_idx):
+    """The sampler as a provider: (sample1, sample2), each (bounce, slot)
+    → the lanes' uniforms from the stateless sampler."""
+    def sample1(bounce, slot):
+        return smp.sample_1d(cfg.sampler, pixel_id, sample_idx, smp.bounce_dim(bounce, slot))
+
+    def sample2(bounce, slot):
+        return smp.sample_2d(cfg.sampler, pixel_id, sample_idx, smp.bounce_dim(bounce, slot))
+
+    return sample1, sample2
+
+
 def _emission_pickup(scene, lights, cfg, hit, d, prev_p, prev_pdf, prev_spec, counts):
     """Radiance of the emitter a ray hit (or the infinite light it
     escaped to), MIS-weighted against the NEE strategy that could have
@@ -93,22 +107,26 @@ def _emission_pickup(scene, lights, cfg, hit, d, prev_p, prev_pdf, prev_spec, co
 
 
 def li(scene, o, d, pixel_id, sample_idx, cfg, rr_start=3, return_stats=False,
-       cone=None, compact_from=None):
+       cone=None, compact_from=None, provider=None):
     """Radiance along camera rays o, d (..., 3) for lanes (pixel_id,
     sample_idx). Returns L (..., 3), and with `return_stats` also
-    {"rays_traced": scalar tensor, "occupancy": (max_depth,) tensor}."""
+    {"rays_traced": scalar tensor, "occupancy": (max_depth,) tensor}.
+    `provider` (sample1, sample2) supplies the uniforms in place of the
+    sampler (default_provider); compaction is off under it, and the
+    texture-footprint jitter takes the centre tap."""
     lights = scene.lights
     kinds = scene.materials.kinds_present
     shp = pixel_id.shape
     dev = o.device
     pixel_id, sample_idx, o, d = common.flat_lanes(pixel_id, sample_idx, o, d)
     n = n0 = pixel_id.numel()
-
-    def sample1(bounce, slot):
-        return smp.sample_1d(cfg.sampler, pixel_id, sample_idx, smp.bounce_dim(bounce, slot))
-
-    def sample2(bounce, slot):
-        return smp.sample_2d(cfg.sampler, pixel_id, sample_idx, smp.bounce_dim(bounce, slot))
+    if provider is None:
+        sample1, sample2 = default_provider(cfg, pixel_id, sample_idx)
+    else:       # the provider's uniforms, lane-major; its state is indexed by lane
+        p1, p2 = provider
+        sample1 = lambda bounce, slot: p1(bounce, slot).reshape(n)          # noqa: E731
+        sample2 = lambda bounce, slot: p2(bounce, slot).reshape(n, 2)       # noqa: E731
+        compact_from = None
 
     f3 = dict(dtype=torch.float32, device=dev)
     L = torch.zeros((n, 3), **f3)
@@ -152,6 +170,7 @@ def li(scene, o, d, pixel_id, sample_idx, cfg, rr_start=3, return_stats=False,
                 scale = torch.clamp(live_n / m, min=1.0)
                 beta = torch.where(active[..., None], beta * scale, beta)
                 n = m
+                sample1, sample2 = default_provider(cfg, pixel_id, sample_idx)
 
         wo = -d
         occupancy.append(active.to(torch.float32).sum() / n0)
@@ -169,7 +188,8 @@ def li(scene, o, d, pixel_id, sample_idx, cfg, rr_start=3, return_stats=False,
         d_tn = d_t / torch.clamp(vm.length(d_t), min=f32(1e-8))[..., None]
         b_ax = vm.cross(hit.ns, hit.dpdu)
         uv_dir = torch.stack([vm.dot(d_tn, hit.dpdu), vm.dot(d_tn, b_ax)], -1)
-        u_j = sample1(bounce, DIM_TEXLOD) - 0.5
+        u_j = sample1(bounce, DIM_TEXLOD) - 0.5 if provider is None \
+            else torch.zeros((n,), **f3)
         uv_eval = hit.uv + uv_dir * (fp_uv * (aniso - 1.0) * u_j)[..., None]
         lp = matmod.resolve(scene.materials, hit.material_id, uv_eval, hit.p,
                             scene.textures, fp=fp_uv)

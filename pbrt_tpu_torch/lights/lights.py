@@ -12,10 +12,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core import sampling
 from ..core import vecmath as vm
 from ..core.sampling import Distribution1D, Distribution2D
 from ..core.spectrum import luminance
-from ..core.types import INV_2PI, INV_PI, PI, f32, safe_sqrt
+from ..core.types import INV_2PI, INV_4PI, INV_PI, PI, f32, safe_sqrt
 from ..geom import quadrics as quadmod
 
 LIGHT_POINT = 0
@@ -395,6 +396,112 @@ def pdf_li_area_scene(lights: LightTable, scene, light_id, p_ref, p_hit, ng_hit)
         pdf_sph = quadmod.sphere_pdf(scene.quad, lights.prim_start[lid], p_ref, wi)
         pdf = torch.where(lights.kind[lid] == LIGHT_AREA_SPHERE, pdf_sph, pdf)
     return pdf
+
+
+def sample_le(lights: LightTable, scene, lt, u_pos, u_dir, world_radius):
+    """Sample a ray leaving light `lt` (N,): the photon rays of SPPM and
+    the first segment of BDPT's light subpaths. Returns dict(o, d, ng_l,
+    le, pdf_pos, pdf_dir): pdf_pos per area (1 for the positional
+    lights, 1/(π r²) on the world disk for the distant and infinite
+    lights), pdf_dir per solid angle."""
+    n = lt.shape
+    kind = lights.kind[lt]
+    lp = lights.p[lt]
+    ldir = lights.direction[lt]
+    emit = lights.emit[lt]
+    f3 = dict(dtype=torch.float32, device=lt.device)
+    out = dict(o=torch.zeros(n + (3,), **f3), d=torch.zeros(n + (3,), **f3),
+               ng_l=torch.zeros(n + (3,), **f3), le=torch.zeros(n + (3,), **f3),
+               pdf_pos=torch.zeros(n, **f3), pdf_dir=torch.zeros(n, **f3))
+    ones = torch.ones(n, **f3)
+
+    def put(mask, o, d, ng, le, pp, pd):
+        for k, v in zip(("o", "d", "ng_l", "le", "pdf_pos", "pdf_dir"), (o, d, ng, le, pp, pd)):
+            out[k] = torch.where(mask[..., None] if out[k].dim() > mask.dim() else mask,
+                                 v, out[k])
+
+    def in_frame(w_local, t1, t2, z):
+        return w_local[..., 0:1] * t1 + w_local[..., 1:2] * t2 + w_local[..., 2:3] * z
+
+    # the world disk's area density, in float32 as the reference computes it
+    disk_pdf = f32(1.0 / f32(f32(PI * world_radius) * world_radius))
+    kp = lights.kinds_present
+    if LIGHT_POINT in kp:
+        d_k = sampling.uniform_sample_sphere(u_dir)
+        put(kind == LIGHT_POINT, lp, d_k, d_k, emit, ones, torch.full(n, INV_4PI, **f3))
+    if LIGHT_SPOT in kp:
+        ce, cs = lights.cos_end[lt], lights.cos_start[lt]
+        t1, t2 = vm.coordinate_system(ldir)
+        d_k = in_frame(sampling.uniform_sample_cone(u_dir, ce), t1, t2, ldir)
+        ct = vm.dot(d_k, ldir)
+        delta_t = torch.clamp((ct - ce) / torch.clamp(cs - ce, min=f32(1e-6)), 0.0, 1.0)
+        falloff = torch.where(ct < ce, 0.0, torch.where(ct > cs, 1.0, delta_t ** 4))
+        put(kind == LIGHT_SPOT, lp, d_k, d_k, emit * falloff[..., None], ones,
+            sampling.uniform_cone_pdf(ce))
+    if LIGHT_GONIO in kp:
+        # uniform-sphere emission modulated by the goniometric image
+        d_k = sampling.uniform_sample_sphere(u_dir)
+        g = _latlong_lookup(lights.gonio_image, _apply(lights.world_to_env, d_k))
+        put(kind == LIGHT_GONIO, lp, d_k, d_k, emit * g, ones, torch.full(n, INV_4PI, **f3))
+    if LIGHT_PROJECTION in kp:
+        # a uniform cone within the projection's fov, modulated by its image
+        ce = lights.cos_end[lt]
+        d_k = in_frame(sampling.uniform_sample_cone(u_dir, ce), lights.tangent[lt],
+                       lights.bitangent[lt], ldir)
+        su, sv, inside = _project_uv(lights, lt, d_k, ldir)
+        proj = _image_lookup_clamped(lights.gonio_image, torch.stack([su, sv], -1))
+        put(kind == LIGHT_PROJECTION, lp, d_k, d_k, emit * proj * inside[..., None], ones,
+            sampling.uniform_cone_pdf(ce))
+    if LIGHT_DISTANT in kp:
+        # a point on the world disk perpendicular to the direction
+        t1, t2 = vm.coordinate_system(ldir)
+        cd = sampling.concentric_sample_disk(u_pos)
+        o_k = (cd[..., 0:1] * t1 + cd[..., 1:2] * t2) * world_radius + ldir * world_radius
+        put(kind == LIGHT_DISTANT, o_k, -ldir, -ldir, emit, torch.full(n, disk_pdf, **f3),
+            ones)
+    if LIGHT_AREA_TRI in kp:
+        # a triangle by area, a point on it, a cosine-distributed direction
+        cdf = lights.em_tri_cdf[lt]
+        u0 = u_pos[..., 0]
+        slot = torch.clamp((cdf <= u0[..., None]).to(torch.int64).sum(-1) - 1,
+                           0, lights.em_tri_idx.shape[1] - 1)
+        c0 = torch.gather(cdf, -1, slot[..., None])[..., 0]
+        c1 = torch.gather(cdf, -1, slot[..., None] + 1)[..., 0]
+        u0r = (u0 - c0) / torch.clamp(c1 - c0, min=f32(1e-9))
+        pl, ngl = _sample_corner_tri(lights.em_tri_p[lt, slot], u0r, u_pos[..., 1])
+        w_local = sampling.cosine_sample_hemisphere(u_dir)
+        t1, t2 = vm.coordinate_system(ngl)
+        put(kind == LIGHT_AREA_TRI, pl, in_frame(w_local, t1, t2, ngl), ngl, emit,
+            1.0 / torch.clamp(lights.total_area[lt], min=f32(1e-12)),
+            sampling.cosine_hemisphere_pdf(torch.clamp(w_local[..., 2], min=0.0)))
+    if LIGHT_AREA_SPHERE in kp:
+        qid = lights.prim_start[lt]
+        center = scene.quad.obj_to_world[qid][..., :3, 3]
+        radius = scene.quad.params[qid, ..., 0]
+        n_sph = sampling.uniform_sample_sphere(u_pos)
+        pl = center + radius[..., None] * n_sph
+        w_local = sampling.cosine_sample_hemisphere(u_dir)
+        t1, t2 = vm.coordinate_system(n_sph)
+        put(kind == LIGHT_AREA_SPHERE, pl, in_frame(w_local, t1, t2, n_sph), n_sph, emit,
+            1.0 / torch.clamp(lights.total_area[lt], min=f32(1e-12)),
+            sampling.cosine_hemisphere_pdf(torch.clamp(w_local[..., 2], min=0.0)))
+    if LIGHT_INFINITE in kp:
+        # a direction from the env map, the origin on the world disk behind it
+        uv, map_pdf = lights.env_dist.sample_continuous(u_dir)
+        theta = uv[..., 1] * PI
+        phi = uv[..., 0] * 2.0 * PI
+        st, ct = torch.sin(theta), torch.cos(theta)
+        wl = torch.stack([st * torch.cos(phi), st * torch.sin(phi), ct], -1)
+        w_world = -_apply(lights.env_to_world, wl)
+        t1, t2 = vm.coordinate_system(-w_world)
+        cd = sampling.concentric_sample_disk(u_pos)
+        o_k = scene.world_center + world_radius * (cd[..., 0:1] * t1 + cd[..., 1:2] * t2
+                                                   - w_world)
+        pdf_d = torch.where(st > f32(1e-7),
+                            map_pdf / (2.0 * PI * PI * torch.clamp(st, min=f32(1e-7))), 0.0)
+        put(kind == LIGHT_INFINITE, o_k, w_world, w_world,
+            emit * _env_lookup_uv(lights.env_image, uv), torch.full(n, disk_pdf, **f3), pdf_d)
+    return out
 
 
 def power(lights: LightTable, world_radius):

@@ -18,6 +18,11 @@ MAT_MATTE = 0
 MAT_PLASTIC = 1
 MAT_GLASS = 2
 MAT_MIRROR = 4
+# kinds not ported (materials_from_numpy refuses them), numbered as in the
+# reference: SPPM's visible-point test names them
+MAT_SUBSTRATE = 5
+MAT_TRANSLUCENT = 6
+MAT_UBER = 7
 PORTED_KINDS = (MAT_MATTE, MAT_PLASTIC, MAT_GLASS, MAT_MIRROR)
 UNPORTED_CHANNELS = ("ks_tex", "kr_tex", "kt_tex", "roughness_tex", "sigma_tex", "bump_tex")
 

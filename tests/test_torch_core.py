@@ -12,6 +12,7 @@ from pbrt_tpu.core import samplers as jsmp
 from pbrt_tpu.core import lowdiscrepancy as jld
 from pbrt_tpu.core import sampling as jsampling
 from pbrt_tpu.core.spectrum import luminance as jluminance
+from pbrt_tpu.core.types import find_interval as jfind_interval
 from pbrt_tpu.film import filters as jfilters
 from pbrt_tpu.cameras import cameras as jcam
 from scenes.bunny import mesh_camera
@@ -21,6 +22,7 @@ from pbrt_tpu_torch.core import samplers as tsmp
 from pbrt_tpu_torch.core import lowdiscrepancy as tld
 from pbrt_tpu_torch.core import sampling as tsampling
 from pbrt_tpu_torch.core.spectrum import luminance as tluminance
+from pbrt_tpu_torch.core.types import find_interval as tfind_interval
 from pbrt_tpu_torch.film import filters as tfilters
 from pbrt_tpu_torch.integrate import driver as tdriver
 from pbrt_tpu_torch import bridge, scenes as tscenes
@@ -71,6 +73,36 @@ def test_sampler_streams_exact(kind, seed):
         np.testing.assert_array_equal(
             np.asarray(jsmp.sample_2d(jcfg, jnp.asarray(P), jnp.asarray(S), dim)),
             tsmp.sample_2d(tcfg, tp, ts, dim).numpy())
+
+
+@pytest.mark.parametrize("shape", [(1,), (7,), (3, 64), (4097,)])
+def test_prefix_sum_matches_a_float64_cumsum(shape):
+    """sampling.prefix_sum (the cdfs' scan) along the last axis, against
+    numpy's cumsum in float64, rtol 1e-6."""
+    x = np.random.RandomState(6).rand(*shape).astype(np.float32)
+    got = tsampling.prefix_sum(torch.as_tensor(x)).numpy()
+    assert got.shape == x.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, np.cumsum(x.astype(np.float64), -1), rtol=1e-6)
+
+
+@pytest.mark.parametrize("per_lane", [False, True])
+def test_find_interval_matches_jax(per_lane):
+    """The port's search of sorted cdfs equals the reference's count of
+    entries <= x, one cdf for every x or one cdf a lane: flat runs (zero
+    func entries), x on an entry, below the first and past the last."""
+    r = np.random.RandomState(5)
+    n, m = 4096, 17
+    func = r.rand(n if per_lane else 1, m).astype(np.float32)
+    func[func < 0.3] = 0.0
+    cdf = np.concatenate([np.zeros_like(func[:, :1]), np.cumsum(func, -1)], -1)
+    cdf = (cdf / cdf[:, -1:]).astype(np.float32)
+    cdf = cdf if per_lane else cdf[0]
+    x = r.rand(n).astype(np.float32)
+    x[:64] = (cdf[:64, 5] if per_lane else cdf[r.randint(0, m + 1, 64)])
+    x[64:68] = [-0.5, 0.0, 1.0, 1.5]
+    got = tfind_interval(torch.as_tensor(cdf), torch.as_tensor(x)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jfind_interval(jnp.asarray(cdf), jnp.asarray(x))))
+    assert len(np.unique(got)) > m // 2
 
 
 def test_warps_heuristic_distribution_luminance():

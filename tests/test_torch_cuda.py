@@ -496,3 +496,61 @@ def test_training_step_on_the_card_matches_the_cpu(card):
     for k in ("kd", "emit"):
         assert np.isfinite(gg[k]).all() and np.abs(gg[k]).max() > 1e-4
         np.testing.assert_allclose(gg[k], gc[k], rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_splat_scatter_is_deterministic_on_the_card(card):
+    """film.add_splats at BDPT's shapes (262,144 values onto 512×512, many
+    on a few pixels): two runs on the card give the same image, bit for
+    bit (a sorted accumulate, no atomics), allclose to the CPU's."""
+    from pbrt_tpu_torch.film import film
+    r = np.random.RandomState(9)
+    n, res = 1 << 18, 512
+    pf = (r.rand(n, 2) * (res + 8) - 4).astype(np.float32)
+    pf[: n // 8] = r.randint(0, 4, (n // 8, 2)) + 0.5
+    val, on = r.rand(n, 3).astype(np.float32), r.rand(n) < 0.7
+    out = []
+    for dev in ("cuda", "cuda", "cpu"):
+        t = lambda a: torch.as_tensor(a, device=dev)   # noqa: E731
+        out.append(film.add_splats(torch.zeros((res, res, 3), device=dev), t(pf), t(val),
+                                   t(on)).cpu())
+    assert torch.equal(out[0], out[1])
+    np.testing.assert_allclose(out[0].numpy(), out[2].numpy(), rtol=1e-5, atol=1e-5)
+    assert float(out[0][:4, :4].sum()) > 1000.0
+
+
+@pytest.mark.cuda
+def test_distribution_build_is_repeatable_on_the_card(card):
+    """Distribution1D.build of one long row (MLT's 262,144 bootstrap
+    luminances plus one): ten builds on the card give the same cdf bit for
+    bit, and the CPU's (prefix_sum: elementwise float64 adds on both)."""
+    from pbrt_tpu_torch.core import sampling
+    func = np.random.RandomState(11).rand(262145).astype(np.float32)
+    cdfs = [sampling.Distribution1D.build(torch.as_tensor(func, device="cuda")).cdf.cpu()
+            for _ in range(10)]
+    assert all(torch.equal(cdfs[0], c) for c in cdfs[1:])
+    assert torch.equal(cdfs[0], sampling.Distribution1D.build(torch.as_tensor(func)).cdf)
+
+
+@pytest.mark.cuda
+def test_sample_le_on_the_card_matches_the_cpu(card):
+    """lights.sample_le of all eight kinds (the Cornell box with
+    scenes.all_kinds_rows) on the card against the CPU, rtol 1e-4, atol
+    1e-5 on 65,536 lanes (the card's transcendentals round differently)."""
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.lights import lights
+    r = np.random.RandomState(10)
+    n = 1 << 16
+    lt, u_pos, u_dir = (r.randint(0, 8, n), r.rand(n, 2).astype(np.float32),
+                        r.rand(n, 2).astype(np.float32))
+    got = []
+    for dev in ("cuda", "cpu"):
+        sc = scenes.with_all_light_kinds(scenes.cornell_spheres(False, "area", dev,
+                                                                clusters=False))
+        t = lambda a: torch.as_tensor(a, device=dev)   # noqa: E731
+        got.append({k: v.cpu() for k, v in lights.sample_le(
+            sc.lights, sc, t(lt), t(u_pos), t(u_dir), sc.world_radius).items()})
+    for k in got[0]:
+        np.testing.assert_allclose(got[0][k].numpy(), got[1][k].numpy(), rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+    assert (got[0]["le"].sum(-1) > 0).float().mean() > 0.5

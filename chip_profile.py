@@ -2,7 +2,8 @@
 """Where the time of one frame goes, on the GPU.
 
     python3 chip_profile.py [path|direct|ao|cornell|volpath|volpath_bench_fog|
-                             volpath_smoke|whitted|grad|bdpt|sppm|mlt|spectral ...]
+                             volpath_smoke|whitted|grad|bdpt|sppm|mlt|spectral|
+                             metal|sss|appearance ...]
 
 Renders the bench frames of chip_smoke.py (512×512, 1 spp, zerotwo; path
 at depth 5 with compact_from=1, direct lighting with strategy "one",
@@ -19,7 +20,10 @@ or `bdpt` (the bench scene, 512×512, 1 spp, depth 5, random sampler), `sppm`
 grid gather), `mlt` (config 2's box, 256×256, depth 5, 262,144 bootstrap
 samples, 65,536 chains, 4 mutations a pixel) or `spectral` (config 2's box
 in the spectral mode, path at depth 5, 256×256, 16 spp, 12 bins), the
-frames of chip_smoke.py phases 19–22, through pbrt_tpu_torch: for each,
+frames of chip_smoke.py phases 19–22, or `metal` and `sss` (the bench
+path frame with a metal or a subsurface blob) or `appearance` (the
+appearance box, path at depth 5 with compact_from=1, 256×256 at 16 spp in
+one wavefront), the frames of phases 24–25, through pbrt_tpu_torch: for each,
 one warm-up, three frames timed with the host clock around
 torch.cuda.synchronize(), then one frame under torch.profiler. Prints the
 frame time, the device-busy share (sum of GPU kernel time over the
@@ -50,7 +54,8 @@ def main():
                                           volpath, whitted)
     from pbrt_tpu_torch.kernels import cluster_cuda as kern
     from pbrt_tpu_torch.scenes import (CORNELL_RES, CORNELL_SPP, CORNELL_SPP_BATCH,
-                                       bench_camera, bench_fog_scene, bench_scene,
+                                       appearance_box, bench_camera, bench_fog_scene,
+                                       bench_scene,
                                        cornell_camera, cornell_spheres, fog_scene,
                                        smoke_scene, volumetric_camera)
 
@@ -62,13 +67,26 @@ def main():
     kern.load_library()
     names = sys.argv[1:] or ["path"]
     frames = {}
+    res = 512
+    cam = bench_camera((res, res), dev)
+    cfg = driver.RenderConfig(width=res, height=res, spp=1, max_depth=5,
+                              sampler=smp.SamplerConfig(kind="zerotwo", spp=1))
+    pid, sid = driver.lane_ids(cfg, 0, 1, dev)
+    for name, blob in (("metal", "metal"), ("sss", "subsurface")):
+        if name in names:
+            bscene = bench_scene(6, dev, blob=blob)
+            bli = path.make_li(cfg, camera=cam, compact_from=1, return_stats=True)
+            frames[name] = (lambda s=bscene, li=bli: driver.render_lanes(s, cam, cfg, li, pid,
+                                                                         sid)[0])
+    if "appearance" in names:
+        ascene = appearance_box(dev)
+        acam = cornell_camera((256, 256), dev)
+        acfg = driver.RenderConfig(width=256, height=256, spp=16, max_depth=5,
+                                   sampler=smp.SamplerConfig(kind="zerotwo", spp=16))
+        ali = path.make_li(acfg, camera=acam, compact_from=1, return_stats=True)
+        frames["appearance"] = lambda: driver.render(ascene, acam, acfg, ali)
     if set(names) & {"path", "direct", "ao"}:
         scene = bench_scene(6, dev)
-        res = 512
-        cam = bench_camera((res, res), dev)
-        cfg = driver.RenderConfig(width=res, height=res, spp=1, max_depth=5,
-                                  sampler=smp.SamplerConfig(kind="zerotwo", spp=1))
-        pid, sid = driver.lane_ids(cfg, 0, 1, dev)
         for name, li in (("path", path.make_li(cfg, camera=cam, compact_from=1,
                                                return_stats=True)),
                          ("direct", direct.make_li(cfg, "one", return_stats=True)),

@@ -115,6 +115,20 @@ Phases, each printing one line with its elapsed seconds:
   23. at 16×16 on the card against the plain versions on the CPU (the pixel
      check): BDPT on the area- and env-lit Cornell boxes and the fog box,
      SPPM (grid), MLT on the specular box, the spectral mode;
+  24. path at depth 5, compact_from=1 on the bench scene with a metal blob
+     and with a subsurface blob, 512×512, 1 spp: every wavefront of a
+     frame (the subsurface probes' two windowed closest-hit launches and
+     the exit's any-hit launch a bounce among them) held to its plain
+     version on 32 tiles spread over it; two timed frames, launches 6/6/0
+     (metal) and 21/16/5 (subsurface) a frame;
+  25. the same on the appearance box (config 2's box with a surface of
+     each material kind but mix, each texture kind and a bump-mapped back
+     wall), 256×256 at 16 spp in one wavefront: launches 21/16/5;
+     phases 24–25 print ms, rays and Mrays/s, one profiled frame's GPU
+     launches, peak memory, 0 NaN and the card's nvidia-smi line;
+  26. at 16×16 on the card against the plain versions on the CPU (the pixel
+     check): path on the appearance box and on the subsurface bench,
+     direct, volpath, BDPT (1 spp, depth 3) and SPPM on the box;
   7. the probe kernels (kernels/probes.py): the compaction probe at tiles
      256 and 1,024 against its plain version (val 0 and -0.0 on some
      lanes), its device time (torch.profiler) beside an empty kernel's;
@@ -1191,6 +1205,138 @@ def integrator_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line):
     return by_path, frames_by
 
 
+def appearance_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line):
+    """Phases 24–26: the appearance slice. Path at depth 5, compact_from=1,
+    zerotwo on the bench scene with a metal blob and with a subsurface blob
+    (512×512, 1 spp) and on the appearance box (256×256, 16 spp in one
+    wavefront of 1,048,576 lanes): every wavefront one frame sends (the
+    subsurface probes' windowed closest-hit launches and the exit points'
+    any-hit launches among them) held to the plain versions on PLAIN_TILES
+    tiles spread over it, bit for bit with equal test counts; one warm-up
+    and two timed frames with the launches a frame, one profiled frame's GPU
+    launches, 0 NaN, peak memory. Then at 16×16 on the card against the
+    plain versions on the CPU (the pixel check): path on the box and on the
+    subsurface bench, direct, volpath, BDPT (1 spp, depth 3) and SPPM on
+    the box. Returns
+    ({path: kernel launches}, {path: frames})."""
+    import numpy as np
+    import torch
+    from pbrt_tpu_torch import scenes as scenes_mod
+    from pbrt_tpu_torch.integrate import bdpt, direct, path, sppm, volpath
+    by_path, frames_by = {}, {}
+    depth, frames = 5, 2
+    # a frame's launches: the primary, then each bounce's fused extension,
+    # and with a subsurface row two probe launches and the exit's shadow query
+    plain = {"coverage": depth + 1, "closest": depth + 1, "occluded": 0}
+    sss = {"coverage": 1 + 4 * depth, "closest": 1 + 3 * depth, "occluded": depth}
+
+    def phase(tag, scene, render, want, lanes):
+        t0 = time.perf_counter()
+        sent = sent_wavefronts(clmod, render)
+        # the unfused closest-hit launches after the primary are the probes;
+        # `windowed`: those with a live lane in a finite window
+        probes = [w for k, w in sent[1:] if k == "closest" and w[4] is None]
+        windowed = sum(1 for w in probes if bool(((w[3] > 0) & torch.isfinite(w[3])).any()))
+        held = check_sent(kern, clmod, scene.clusters, sent, tile, tag, PLAIN_TILES)
+        kinds = {k: sum(1 for h in held if h[0] == k) for k in ("closest", "occluded")}
+        n_probes = len(probes)
+        del sent, probes
+        log(f"{tag}_wavefronts", held=held, probe_launches=n_probes,
+            probe_launches_windowed=windowed,
+            compared_tiles_each=PLAIN_TILES, all_compared_equal=True,
+            seconds=f"{time.perf_counter() - t0:.2f}")
+        if kinds != {"closest": want["closest"], "occluded": want["occluded"]}:
+            fail(f"{tag}: traced {kinds} wavefronts, expected {want}")
+        if n_probes != (2 * depth if want["occluded"] else 0) or (n_probes and not windowed):
+            fail(f"{tag}: {n_probes} probe launches ({windowed} with a live window)")
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        (img, stats), ms, launches = timed_frames(render, kernels, frames)
+        per_frame = {k: v // frames for k, v in launches.items()}
+        rays = float(stats["rays_traced"])
+        n_nan = int(torch.isnan(img).sum())
+        by_path[tag], frames_by[tag] = launches, frames
+        log(tag, lanes=lanes, frame_ms=[round(t, 3) for t in ms], rays_per_frame=rays,
+            mrays_per_s=f"{rays * frames / sum(ms) / 1e3:.3f}",
+            gpu_launches_per_frame=gpu_launches(render), launches_per_frame=per_frame,
+            peak_memory_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.3f}",
+            image_mean=f"{float(img.mean()):.6f}", nan=n_nan, card=f"'{smi_line}'",
+            seconds=f"{time.perf_counter() - t0:.2f}")
+        if n_nan or not bool(torch.isfinite(img).all()):
+            fail(f"{tag}: image is not finite")
+        if per_frame != want or any(v % frames for v in launches.values()):
+            fail(f"{tag}: launches over {frames} frames {launches}, expected {want} a frame")
+
+    # 24. the bench path frame with a metal and with a subsurface blob
+    res = 512
+    cam = scenes_mod.bench_camera((res, res), dev)
+    cfg = driver.RenderConfig(width=res, height=res, spp=1, max_depth=depth,
+                              sampler=smp.SamplerConfig(kind="zerotwo", spp=1))
+    pid, sid = driver.lane_ids(cfg, 0, 1, dev)
+    li = path.make_li(cfg, camera=cam, compact_from=1, return_stats=True)
+    for tag, blob, want in (("bench_metal", "metal", plain),
+                            ("bench_subsurface", "subsurface", sss)):
+        scene = scenes_mod.bench_scene(6, dev, blob=blob)
+
+        def frame(s=scene):
+            img, stats = driver.render_lanes(s, cam, cfg, li, pid, sid)[0]
+            return img.reshape(res, res, 3), stats
+
+        phase(tag, scene, frame, want, res * res)
+        del scene, frame
+
+    # 25. the appearance box, 256×256 at 16 spp in one wavefront
+    ares, aspp = 256, 16
+    box = scenes_mod.appearance_box(dev)
+    acam = scenes_mod.cornell_camera((ares, ares), dev)
+    acfg = driver.RenderConfig(width=ares, height=ares, spp=aspp, max_depth=depth,
+                               sampler=smp.SamplerConfig(kind="zerotwo", spp=aspp))
+    ali = path.make_li(acfg, camera=acam, compact_from=1, return_stats=True)
+    phase("appearance_box", box, lambda: driver.render(box, acam, acfg, ali), sss,
+          ares * ares * aspp)
+    log("appearance_box_kinds", materials=list(box.materials.kinds_present),
+        textures=list(box.textures.kinds_present),
+        channels=list(box.materials.tex_channels), bump=box.materials.has_bump)
+    del box
+
+    # 26. 16×16: the card against the plain versions on the CPU
+    def parity(tag, make_scene, make_cam, render):
+        t0 = time.perf_counter()
+        imgs = [render(make_scene(d), make_cam((16, 16), d)).cpu().numpy()
+                for d in (dev, "cpu")]
+        frac, mdiff, ok = pixel_check(*imgs)
+        log(tag, pixels_within_tol=f"{frac:.4f}", mean_diff=f"{mdiff:.3e}",
+            max_rel_diff=f"{np.max(np.abs(imgs[0] - imgs[1]) / np.maximum(np.abs(imgs[1]), 1e-2)):.3e}",
+            mean=f"{imgs[0].mean():.6f}", seconds=f"{time.perf_counter() - t0:.2f}",
+            passed=ok)
+        if not ok or not np.isfinite(imgs[0]).all() or imgs[0].mean() <= 0:
+            fail(f"{tag}: the render through the kernels disagrees with the plain versions")
+
+    c16 = driver.RenderConfig(width=16, height=16, spp=4, max_depth=depth,
+                              sampler=smp.SamplerConfig(kind="zerotwo", spp=4))
+    box16 = scenes_mod.appearance_box
+    for tag, make_scene, make_cam, li16 in (
+            ("appearance_path_16x16", box16, scenes_mod.cornell_camera, path.make_li(c16)),
+            ("bench_subsurface_path_16x16",
+             lambda d: scenes_mod.bench_scene(6, d, blob="subsurface"),
+             scenes_mod.bench_camera, path.make_li(c16)),
+            ("appearance_direct_16x16", box16, scenes_mod.cornell_camera, direct.make_li(c16)),
+            ("appearance_volpath_16x16", box16, scenes_mod.cornell_camera,
+             volpath.make_li(c16))):
+        parity(tag, make_scene, make_cam, lambda s, c, li=li16: driver.render(s, c, c16, li))
+    # BDPT at 1 spp, depth 3: its connections evaluate every kind's BSDF and
+    # every texture at each vertex pair, some 170 s of the CPU's at depth 5
+    b16 = bdpt.BDPTConfig(width=16, height=16, spp=1, max_depth=3,
+                          sampler=smp.SamplerConfig(kind="random", spp=1))
+    parity("appearance_bdpt_16x16", box16, scenes_mod.cornell_camera,
+           lambda s, c: bdpt.render(s, c, b16))
+    s16 = sppm.SPPMConfig(width=16, height=16, n_iterations=2, photons_per_iter=4096,
+                          max_depth=depth, gather="grid")
+    parity("appearance_sppm_16x16", box16, scenes_mod.cornell_camera,
+           lambda s, c: sppm.render(s, c, s16))
+    return by_path, frames_by
+
+
 def free_port():
     import socket
     with socket.socket() as s:
@@ -1528,7 +1674,8 @@ def main():
     for part in (cornell_phases(kern, clmod, scenemod, driver, direct, path, smp, dev, tile),
                  volpath_phases(kern, clmod, driver, smp, dev, tile, kernels),
                  grad_phases(kern, clmod, driver, smp, dev, tile, kernels),
-                 integrator_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line)):
+                 integrator_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line),
+                 appearance_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line)):
         by_path.update(part[0])
         frames_by.update(part[1])
     check_lights(scenes_mod, lightsmod, distrib, dev)

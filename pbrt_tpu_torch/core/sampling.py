@@ -7,7 +7,8 @@ from typing import NamedTuple
 import torch
 
 from . import vecmath as vm
-from .types import INV_2PI, INV_PI, PI, PI_OVER_2, PI_OVER_4, f32, find_interval, safe_sqrt
+from .types import (INV_2PI, INV_PI, PI, PI_OVER_2, PI_OVER_4, divisor, f32, find_interval,
+                    safe_sqrt)
 
 
 def prefix_sum(x):
@@ -104,10 +105,11 @@ class Distribution1D(NamedTuple):
     def build(func):
         func = torch.clamp(func.to(torch.float32), min=0.0)
         n = func.shape[-1]
-        cdf = prefix_sum(func) / n
+        n_div = divisor(n, func.device)
+        cdf = prefix_sum(func) / n_div
         func_int = cdf[..., -1]
         safe_int = torch.where(func_int > 0.0, func_int, 1.0)
-        ramp = torch.arange(1, n + 1, dtype=torch.float32, device=func.device) / n
+        ramp = torch.arange(1, n + 1, dtype=torch.float32, device=func.device) / n_div
         cdf = torch.where(func_int[..., None] > 0.0, cdf / safe_int[..., None],
                           ramp)
         cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)

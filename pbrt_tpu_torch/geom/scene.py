@@ -83,9 +83,14 @@ def world_bounds(positions, quad_params=None, quad_o2w=None, quad_kind=None):
             float(np.float32(float(np.linalg.norm(hi - center)) + 1e-4)))
 
 
-def _window(n, active, device):
-    t_min = torch.full((n,), RAY_EPS, dtype=torch.float32, device=device)
-    t_max = torch.full((n,), INF, dtype=torch.float32, device=device)
+def _window(n, active, device, t_min=None, t_max=None):
+    """Per-lane (t_min, t_max): RAY_EPS and INF unless given (scalars or
+    (N,)); lanes not `active` get t_max = -1."""
+    f = dict(dtype=torch.float32, device=device)
+    t_min = torch.full((n,), RAY_EPS, **f) if t_min is None else \
+        torch.broadcast_to(torch.as_tensor(t_min, **f), (n,)).detach()
+    t_max = torch.full((n,), INF, **f) if t_max is None else \
+        torch.broadcast_to(torch.as_tensor(t_max, **f), (n,)).detach()
     if active is not None:
         t_max = torch.where(active, t_max, -1.0)
     return t_min, t_max
@@ -155,10 +160,11 @@ def _finish(scene: Scene, o, d, t_min, t_max, tri_result) -> Hit:
     return hit
 
 
-def intersect(scene: Scene, o, d, active=None) -> Hit:
-    """Closest hit for rays o, d (N, 3); `active` marks live lanes (dead
+def intersect(scene: Scene, o, d, t_min=None, t_max=None, active=None) -> Hit:
+    """Closest hit for rays o, d (N, 3) with t in (t_min, t_max) (defaults
+    RAY_EPS and INF; scalars or (N,)); `active` marks live lanes (dead
     lanes get t_max < t_min and cost the tracer nothing)."""
-    t_min, t_max = _window(o.shape[0], active, o.device)
+    t_min, t_max = _window(o.shape[0], active, o.device, t_min, t_max)
     res = None
     if scene.tri.count:
         # visibility is detached (pbrt_tpu/diff/inverse.py:1-12): no gradient
@@ -177,14 +183,7 @@ def occluded(scene: Scene, o, d, t_min=None, t_max=None, active=None):
     false) get t_max = -1. Returns occ (N,) bool."""
     # visibility is detached (pbrt_tpu/diff/inverse.py:1-12)
     o, d = o.detach(), d.detach()
-    n = o.shape[0]
-    f = dict(dtype=torch.float32, device=o.device)
-    t_min = torch.broadcast_to(torch.as_tensor(RAY_EPS if t_min is None else t_min, **f),
-                               (n,)).detach()
-    t_max = torch.broadcast_to(torch.as_tensor(INF if t_max is None else t_max, **f),
-                               (n,)).detach()
-    if active is not None:
-        t_max = torch.where(active, t_max, -1.0)
+    t_min, t_max = _window(o.shape[0], active, o.device, t_min, t_max)
     occ = None
     if scene.tri.count:
         if scene.clusters is not None:

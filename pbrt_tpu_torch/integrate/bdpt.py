@@ -237,7 +237,7 @@ def _walk(scene, cfg, pid, sid, o, d, beta0, pdf_dir0, mode, dim_base, max_v, pa
         nv = torch.where(live, i + 1, nv)
 
         # the continuation
-        frame = common.shading_frame(hit)
+        frame = common.shading_frame(hit, scene)
         lp = matmod.resolve(scene.materials, hit.material_id, hit.uv, hit.p, scene.textures)
         wo = -d
         wo_l = frame.to_local(wo)

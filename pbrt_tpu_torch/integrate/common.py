@@ -11,7 +11,7 @@ import torch
 from ..core import vecmath as vm
 from ..core.sampling import power_heuristic
 from ..core.spectrum import luminance
-from ..core.types import SHADOW_EPS, f32
+from ..core.types import SHADOW_EPS, divisor, f32
 from ..geom import scene as scenemod
 from ..lights import distrib
 from ..lights import lights as lightsmod
@@ -40,11 +40,33 @@ def flat_lanes(pixel_id, sample_idx, o, d):
     return pixel_id.reshape(n), sample_idx.reshape(n), o.reshape(n, 3), d.reshape(n, 3)
 
 
-def shading_frame(hit):
-    """Orthonormal shading frame from the hit's dpdu and shading normal.
-    No bump mapping: materials_from_numpy refuses bump textures."""
-    n = hit.ns
-    b = vm.normalize(vm.cross(n, hit.dpdu))
+BUMP_DU = f32(5e-4)     # the bump texture's finite-difference step in u, v and p
+
+
+def shading_frame(hit, scene=None):
+    """Orthonormal shading frame from the hit's dpdu and shading normal,
+    bump-mapped where the hit's material has a bump texture and `scene`
+    is given: the normal tilts by the texture's finite differences along
+    u (dpdu) and v (n × dpdu)."""
+    t, n = hit.dpdu, hit.ns
+    mats = None if scene is None else scene.materials
+    if mats is not None and scene.textures is not None and mats.has_bump:
+        from ..shade import textures as texmod
+        btex = mats.bump_tex[torch.clamp(hit.material_id, min=0)]
+        b_axis = vm.normalize(vm.cross(n, t))
+        du = BUMP_DU
+        step = torch.tensor([[du, 0.0], [0.0, du]], dtype=torch.float32, device=t.device)
+        ids = mats.tex_ids["bump_tex"]
+        h0, hu, hv = (texmod.evaluate(scene.textures, btex, uv, p, ids=ids)[..., 0]
+                      for uv, p in ((hit.uv, hit.p), (hit.uv + step[0], hit.p + du * t),
+                                    (hit.uv + step[1], hit.p + du * b_axis)))
+        dudiv = divisor(du, t.device)
+        dhdu = (hu - h0) / dudiv
+        dhdv = (hv - h0) / dudiv
+        n_b = vm.normalize(n - dhdu[..., None] * t - dhdv[..., None] * b_axis)
+        n = torch.where((btex >= 0)[..., None], n_b, n)
+        t = vm.normalize(t - vm.dot(t, n)[..., None] * n)
+    b = vm.normalize(vm.cross(n, t))
     return Frame(vm.cross(b, n), b, n)
 
 

@@ -29,7 +29,7 @@ def li(scene, o, d, pixel_id, sample_idx, cfg, strategy="one", return_stats=Fals
     l_emit = torch.where(hit.valid[..., None],
                          lightsmod.area_light_radiance(lights, hit.light_id, hit.ng, wo),
                          lightsmod.env_radiance(lights, d))
-    frame = common.shading_frame(hit)
+    frame = common.shading_frame(hit, scene)
     lp = matmod.resolve(scene.materials, hit.material_id, hit.uv, hit.p, scene.textures)
     kinds = scene.materials.kinds_present
     active = hit.valid & (hit.material_id >= 0)

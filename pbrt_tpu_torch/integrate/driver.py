@@ -25,6 +25,10 @@ class RenderConfig(NamedTuple):
     filter: filtmod.Filter = filtmod.Filter()
     samples_per_batch: int = 0      # 0 → all spp in one wavefront
     light_strategy: str = "uniform"
+    # texture filtering along the footprint's major axis: 1 = one
+    # stochastic tap a sample, > 1 = that many midpoint taps averaged a
+    # lookup (low-spp previews; each tap costs a texture evaluation)
+    aniso_taps: int = 1
 
 
 def lane_ids(cfg: RenderConfig, sample_lo, sample_hi, device):

@@ -106,6 +106,30 @@ def _emission_pickup(scene, lights, cfg, hit, d, prev_p, prev_pdf, prev_spec, co
     return torch.where(counts[..., None], le * w[..., None], 0.0)
 
 
+def _subsurface_leg(scene, cfg, hit, frame, lp, trans, L, beta, active, sample1, sample2,
+                    bounce):
+    """Transmission events on subsurface lanes leave at a profile-sampled
+    exit point: its Sp weight, next-event estimation there with the Sw
+    lobe, and a cosine-sampled continuation through Sw. Returns (L, beta,
+    active, (ok, exit_hit, wi, pdf)) for the extension ray."""
+    from . import path_sss
+    dim = path_sss.DIM_SSS
+    is_sss = active & (lp.kind == matmod.MAT_SUBSURFACE) & trans
+    exit_hit, sp_w, ok, eta = path_sss.sample_exit(
+        scene, hit, frame, sample1(bounce, dim), sample1(bounce, dim + 1),
+        sample1(bounce, dim + 2), sample1(bounce, dim + 3), is_sss)
+    active = active & (~is_sss | ok)
+    beta = torch.where(ok[..., None], beta * sp_w, beta)
+    lt, pmf = common.select_light(scene, cfg.light_strategy, exit_hit.p,
+                                  sample1(bounce, dim + 4))
+    ld = path_sss.sw_nee(scene, scene.lights, exit_hit, eta, lt, sample2(bounce, dim + 5), ok)
+    L = L + torch.where(ok[..., None], beta * ld / torch.clamp(pmf, min=f32(1e-12))[..., None],
+                        0.0)
+    wi, w_sw, pdf_cos = path_sss.sw_sample(exit_hit, eta, sample2(bounce, dim + 7))
+    beta = torch.where(ok[..., None], beta * w_sw[..., None], beta)
+    return L, beta, active, (ok, exit_hit, wi, pdf_cos)
+
+
 def li(scene, o, d, pixel_id, sample_idx, cfg, rr_start=3, return_stats=False,
        cone=None, compact_from=None, provider=None):
     """Radiance along camera rays o, d (..., 3) for lanes (pixel_id,
@@ -177,7 +201,7 @@ def li(scene, o, d, pixel_id, sample_idx, cfg, rr_start=3, return_stats=False,
         L = L + beta * _emission_pickup(scene, lights, cfg, hit, d, prev_p, prev_pdf,
                                         prev_spec, active)
         active = active & hit.valid & (hit.material_id >= 0)
-        frame = common.shading_frame(hit)
+        frame = common.shading_frame(hit, scene)
 
         # ray-cone texture footprint: minor axis from the cone width, one
         # stochastic tap along the major (grazing) axis per sample
@@ -188,11 +212,21 @@ def li(scene, o, d, pixel_id, sample_idx, cfg, rr_start=3, return_stats=False,
         d_tn = d_t / torch.clamp(vm.length(d_t), min=f32(1e-8))[..., None]
         b_ax = vm.cross(hit.ns, hit.dpdu)
         uv_dir = torch.stack([vm.dot(d_tn, hit.dpdu), vm.dot(d_tn, b_ax)], -1)
-        u_j = sample1(bounce, DIM_TEXLOD) - 0.5 if provider is None \
-            else torch.zeros((n,), **f3)
-        uv_eval = hit.uv + uv_dir * (fp_uv * (aniso - 1.0) * u_j)[..., None]
-        lp = matmod.resolve(scene.materials, hit.material_id, uv_eval, hit.p,
-                            scene.textures, fp=fp_uv)
+        taps = cfg.aniso_taps
+        if taps > 1:
+            # deterministic midpoint taps along the major axis, their
+            # resolved parameters averaged: filtered per lookup
+            lp = matmod.average_taps([
+                matmod.resolve(scene.materials, hit.material_id,
+                               hit.uv + uv_dir * (fp_uv * (aniso - 1.0)
+                                                  * ((k + 0.5) / taps - 0.5))[..., None],
+                               hit.p, scene.textures, fp=fp_uv) for k in range(taps)])
+        else:
+            u_j = sample1(bounce, DIM_TEXLOD) - 0.5 if provider is None \
+                else torch.zeros((n,), **f3)
+            uv_eval = hit.uv + uv_dir * (fp_uv * (aniso - 1.0) * u_j)[..., None]
+            lp = matmod.resolve(scene.materials, hit.material_id, uv_eval, hit.p,
+                                scene.textures, fp=fp_uv)
 
         # NEE light half; its shadow ray rides this bounce's extension launch
         lt, pmf = common.select_light(scene, cfg.light_strategy, hit.p, sample1(bounce, 5))
@@ -223,6 +257,11 @@ def li(scene, o, d, pixel_id, sample_idx, cfg, rr_start=3, return_stats=False,
                                beta / torch.clamp(1.0 - q, min=f32(1e-6))[..., None], beta)
             active = active & survive
 
+        sss = None
+        if matmod.MAT_SUBSURFACE in kinds:
+            L, beta, active, sss = _subsurface_leg(scene, cfg, hit, frame, lp, trans, L,
+                                                   beta, active, sample1, sample2, bounce)
+
         prev_p = hit.p
         prev_pdf = pdf
         prev_spec = spec
@@ -231,6 +270,14 @@ def li(scene, o, d, pixel_id, sample_idx, cfg, rr_start=3, return_stats=False,
         cone_s = torch.where(spec, cone_s, torch.maximum(cone_s, lobe_spread))
         o = vm.offset_ray_origin(hit.p, hit.ng, wi)
         d = wi
+        if sss is not None:       # subsurface lanes continue from their exit point
+            ok, exit_hit, wi_sss, pdf_cos = sss
+            m3 = ok[..., None]
+            o = torch.where(m3, vm.offset_ray_origin(exit_hit.p, exit_hit.ns, wi_sss), o)
+            d = torch.where(m3, wi_sss, d)
+            prev_p = torch.where(m3, exit_hit.p, prev_p)
+            prev_pdf = torch.where(ok, pdf_cos, prev_pdf)
+            prev_spec = prev_spec & ~ok
         hit, occ = scenemod.intersect_occluded(scene, o, d, o_sh, wi_sh, tmax_sh,
                                                active=active, active_sh=usable)
         L = L + torch.where((usable & ~occ)[..., None], nee_c, 0.0)

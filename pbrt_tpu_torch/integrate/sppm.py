@@ -103,7 +103,7 @@ def _camera_pass(scene, camera, cfg, it):
         ld = ld + torch.where(count_emit[..., None], beta * le, 0.0)
         active = active & hit.valid & (hit.material_id >= 0)
 
-        frame = common.shading_frame(hit)
+        frame = common.shading_frame(hit, scene)
         lp = matmod.resolve(scene.materials, hit.material_id, hit.uv, hit.p, scene.textures)
         # direct lighting at every camera vertex
         lt, pmf = common.select_light_uniform(lights, s1(smp.bounce_dim(bounce, 5)))
@@ -180,7 +180,7 @@ def _photon_pass(scene, cfg, it):
         # deposit after the first bounce (direct light is the camera pass's NEE)
         deposits.append((hit.p, -d, beta, active & (bounce > 0)))
 
-        frame = common.shading_frame(hit)
+        frame = common.shading_frame(hit, scene)
         lp = matmod.resolve(scene.materials, hit.material_id, hit.uv, hit.p, scene.textures)
         wi_l, f, pdf, _, _ = matmod.sample(lp, kinds, frame.to_local(-d),
                                            s1(smp.bounce_dim(bounce, 2) + 50),

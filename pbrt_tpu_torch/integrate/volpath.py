@@ -115,7 +115,7 @@ def li(scene, o, d, pixel_id, sample_idx, cfg, rr_start=3, return_stats=False):
 
         # surface event: NEE with Tr over the shadow segment, one BSDF sample
         surf = reach & hit.valid & (hit.material_id >= 0)
-        frame = common.shading_frame(hit)
+        frame = common.shading_frame(hit, scene)
         lp = matmod.resolve(scene.materials, hit.material_id, hit.uv, hit.p, scene.textures)
         lt_s, pmf_s = common.select_light(scene, cfg.light_strategy, hit.p, s1(bounce, 5))
         ld_surf_c, o_sh_s, wi_sh_s, tmax_s, usable_s, ls_s = common.nee_light_defer(

@@ -44,7 +44,7 @@ def li(scene, o, d, pixel_id, sample_idx, cfg, return_stats=False):
         L = L + torch.where(active[..., None], beta * le, 0.0)
         active = active & hit.valid & (hit.material_id >= 0)
 
-        frame = common.shading_frame(hit)
+        frame = common.shading_frame(hit, scene)
         lp = matmod.resolve(scene.materials, hit.material_id, hit.uv, hit.p, scene.textures)
         wo_l = frame.to_local(wo)
 

@@ -29,7 +29,8 @@ from .geom.types import (QUAD_CONE, QUAD_CYLINDER, QUAD_DISK, QUAD_HYPERBOLOID,
 from .lights import lights as lightsmod
 from .shade import materials as matmod
 from .shade import media as medmod
-from .shade.textures import build_image_textures
+from .shade import textures as texmod
+from .shade.fourier import make_lambertian_table
 
 # Baseline config 2 (BASELINE.json) at its published size: the Cornell box
 # with a mirror and a glass sphere, path at depth 5, 256×256 at 64 spp,
@@ -49,15 +50,16 @@ def wood_image(size=512):
 
 class _Builder:
     """The parts of SceneBuilder the native scenes use: meshes and quads,
-    the six quadrics, material rows and medium interfaces, one image
-    texture list, area quad, point and infinite lights, and one
-    homogeneous or grid medium, built into the port's Scene."""
+    the six quadrics, material rows of every kind and medium interfaces,
+    a texture table of every kind, area quad, point and infinite lights,
+    and one homogeneous or grid medium, built into the port's Scene."""
 
     def __init__(self):
         self.verts, self.normals, self.uvs, self.tris = [], [], [], []
         self.mat, self.light, self.has_ns = [], [], []
         self.quads = []       # (kind, obj_to_world, params, material, light)
-        self.materials, self.lights, self.images = [], [], []
+        self.materials, self.lights = [], []
+        self.textures = texmod.TextureBuilder()
         self.env_image = self.env_to_world = None
         self.media_rows, self.media_grid = None, None
         self.vbase = 0
@@ -70,16 +72,45 @@ class _Builder:
     def matte(self, kd, sigma=0.0):
         return self.material(kind=matmod.MAT_MATTE, kd=kd, sigma=sigma)
 
-    def mirror(self, kr=0.9):
-        return self.material(kind=matmod.MAT_MIRROR, kr=kr)
+    def plastic(self, kd, ks, roughness=0.1, remap=True):
+        return self.material(kind=matmod.MAT_PLASTIC, kd=kd, ks=ks,
+                             roughness=(roughness, roughness), remap_roughness=remap)
 
     def glass(self, kr=1.0, kt=1.0, eta=1.5, roughness=0.0, remap=True):
         return self.material(kind=matmod.MAT_GLASS, kr=kr, kt=kt, eta=eta,
                              roughness=(roughness, roughness), remap_roughness=remap)
 
-    def image_texture(self, img, su, sv):
-        self.images.append((img, su, sv))
-        return len(self.images) - 1
+    def metal(self, eta=(0.2, 0.92, 1.1), k=(3.9, 2.45, 2.14), roughness=0.01, ks=1.0,
+              remap=True):
+        return self.material(kind=matmod.MAT_METAL, metal_eta=eta, metal_k=k, ks=ks,
+                             roughness=(roughness, roughness), remap_roughness=remap)
+
+    def mirror(self, kr=0.9):
+        return self.material(kind=matmod.MAT_MIRROR, kr=kr)
+
+    def substrate(self, kd, ks, roughness=0.1, remap=True):
+        return self.material(kind=matmod.MAT_SUBSTRATE, kd=kd, ks=ks,
+                             roughness=(roughness, roughness), remap_roughness=remap)
+
+    def uber(self, kd=0.25, ks=0.25, kr=0.0, opacity=1.0, roughness=0.1, eta=1.5):
+        return self.material(kind=matmod.MAT_UBER, kd=kd, ks=ks, kr=kr, opacity=opacity,
+                             roughness=(roughness, roughness), eta=eta)
+
+    def translucent(self, kd=0.25, reflect=0.5, transmit=0.5):
+        return self.material(kind=matmod.MAT_TRANSLUCENT, kd=kd, kr=reflect, kt=transmit)
+
+    def fourier(self, table):
+        """A Fourier BSDF row on `table` (shade.fourier.FourierTable)."""
+        return self.material(kind=matmod.MAT_FOURIER, fourier_table=table)
+
+    def subsurface(self, sigma_a=(0.0011, 0.0024, 0.014), sigma_s=(2.55, 3.21, 3.77),
+                   g=0.0, eta=1.33, scale=1.0, roughness=0.0, remap=True):
+        """Tabulated-BSSRDF row (defaults about skim milk); kr = kt = 1, the
+        interface lobes weight by Fresnel themselves."""
+        aux = list(np.broadcast_to(np.asarray(sigma_a, np.float32), (3,))) \
+            + list(np.broadcast_to(np.asarray(sigma_s, np.float32), (3,))) + [g, scale]
+        return self.material(kind=matmod.MAT_SUBSURFACE, eta=eta, aux=aux, kr=1.0, kt=1.0,
+                             roughness=(roughness, roughness), remap_roughness=remap)
 
     def add_mesh(self, v, f, material, normals=None, uvs=None, light=-1):
         v = np.asarray(v, np.float32)
@@ -210,7 +241,7 @@ class _Builder:
             lights=lightsmod.build_lights(self.lights, pos, idx,
                                           None if qa is None else qa["params"],
                                           self.env_image, self.env_to_world, device=device),
-            textures=build_image_textures(self.images, device) if self.images else None,
+            textures=self.textures.build(device) if self.textures.rows else None,
             light_distrib=None,
             world_center=torch.as_tensor(center, device=device),
             world_radius=radius, tile=tile,
@@ -218,17 +249,26 @@ class _Builder:
                    else medmod.build_media(self.media_rows, self.media_grid, device)))
 
 
-def bench_scene(subdivisions=6, device=None, tile=clmod.TILE):
-    """The bench scene on `device` (cuda unless told otherwise)."""
+BLOBS = ("plastic", "metal", "subsurface")
+
+
+def bench_scene(subdivisions=6, device=None, tile=clmod.TILE, blob="plastic"):
+    """The bench scene on `device` (cuda unless told otherwise). `blob` is
+    the blob's material: "plastic" (the bench), "metal" (counterpart of
+    mesh_scene(metal_blob=True)) or "subsurface" (SceneBuilder.subsurface
+    at its defaults)."""
+    if blob not in BLOBS:
+        raise ValueError(f"blob {blob!r}: expected one of {BLOBS}")
     device = resolve_device(device)
     b = _Builder()
     white = b.matte(kd=(0.73, 0.73, 0.73))
-    wood = b.image_texture(wood_image(), 3.0, 3.0)
+    wood = b.textures.image(wood_image(), su=3.0, sv=3.0)
     floor_mat = b.material(kind=matmod.MAT_MATTE, kd=(1.0, 1.0, 1.0), kd_tex=wood,
                            sigma=0.0)
-    blob_mat = b.material(kind=matmod.MAT_PLASTIC, kd=(0.4, 0.25, 0.12),
-                          ks=(0.3, 0.3, 0.3), roughness=(0.08, 0.08),
-                          remap_roughness=True)
+    blob_mat = {"plastic": lambda: b.plastic(kd=(0.4, 0.25, 0.12), ks=(0.3, 0.3, 0.3),
+                                             roughness=0.08),
+                "metal": lambda: b.metal(roughness=0.05),
+                "subsurface": b.subsurface}[blob]()
     v, f, vn = bench_blob(subdivisions)
     b.add_mesh(v + np.array([0.5, 0.35, -0.5], np.float32), f, blob_mat, normals=vn)
     s = 1.0
@@ -345,6 +385,81 @@ def cornell_spheres(specular=False, light="area", device=None, clusters=True,
     else:
         raise ValueError(f"light {light!r}: expected 'area', 'point' or 'env'")
     return b.build(resolve_device(device), tile, clusters)
+
+
+def appearance_rows(b, fourier_table, marble=True):
+    """Fill builder `b` with the appearance box: config 2's Cornell box
+    (walls, mirror and glass spheres, ceiling light) with seven small
+    spheres along the back wall, so that it has a surface of each material
+    kind but mix, each texture kind on some channel and a bump-mapped back
+    wall. `b` is this module's _Builder or the JAX package's SceneBuilder:
+    both take these calls; `fourier_table` is that package's Lambertian
+    table. Without `marble` the plastic sphere's kd is a constant in place
+    of the marble texture (the JAX package cannot evaluate marble on more
+    than one lane)."""
+    tx = b.textures
+    const = tx.constant((0.73, 0.73, 0.73))
+    checker = tx.checkerboard((0.8, 0.8, 0.8), (0.3, 0.3, 0.3), su=6.0, sv=6.0)
+    sigma = tx.scale(tx.uv(), 40.0)
+    mix = tx.mix(tx.dots((0.9, 0.85, 0.2), (0.65, 0.05, 0.05), su=8.0, sv=8.0),
+                 tx.bilerp((0.7, 0.1, 0.1), (0.4, 0.05, 0.2), (0.9, 0.3, 0.1), (0.5, 0.1, 0.0)),
+                 0.5)
+    wood = tx.image(wood_image(64), su=2.0, sv=2.0)
+    bump = tx.fbm(octaves=4, omega=0.5)
+    wrinkled = tx.wrinkled(octaves=3, omega=0.6)
+    checker3d = tx.checkerboard((0.95, 0.64, 0.54), (0.6, 0.6, 0.6), dims=3)
+    windy = tx.windy()
+    kr_const = tx.constant((0.9, 0.9, 0.9))
+    white = b.material(kind=matmod.MAT_MATTE, kd=(0.73, 0.73, 0.73), kd_tex=const,
+                       sigma_tex=sigma)
+    back = b.material(kind=matmod.MAT_MATTE, kd=(0.73, 0.73, 0.73), kd_tex=wood,
+                      bump_tex=bump)
+    left = b.material(kind=matmod.MAT_MATTE, kd=(0.65, 0.05, 0.05), kd_tex=mix)
+    floor = b.material(kind=matmod.MAT_SUBSTRATE, kd=(0.5, 0.5, 0.5), ks=(0.04, 0.04, 0.04),
+                       roughness=(0.1, 0.1), kd_tex=checker)
+    right = b.material(kind=matmod.MAT_TRANSLUCENT, kd=(0.12, 0.45, 0.15), kr=0.5, kt=0.5,
+                       kt_tex=wrinkled)
+    mirror = b.material(kind=matmod.MAT_MIRROR, kr=(0.9, 0.9, 0.9), kr_tex=kr_const)
+    glass = b.glass(eta=1.5)
+    metal = b.material(kind=matmod.MAT_METAL, metal_eta=(0.2, 0.92, 1.1),
+                       metal_k=(3.9, 2.45, 2.14), ks=1.0, roughness=(0.05, 0.05),
+                       ks_tex=checker3d)
+    plastic = b.material(kind=matmod.MAT_PLASTIC, kd=(0.4, 0.25, 0.12), ks=(0.3, 0.3, 0.3),
+                         roughness=(0.08, 0.08),
+                         **({"kd_tex": tx.marble(octaves=4, scale=6.0, variation=0.4)}
+                            if marble else {}))
+    uber = b.material(kind=matmod.MAT_UBER, kd=(0.3, 0.2, 0.5), ks=(0.3, 0.3, 0.3),
+                      kr=(0.1, 0.1, 0.1), opacity=(0.9, 0.9, 0.9), roughness=(0.2, 0.2),
+                      eta=1.5, roughness_tex=windy)
+    disney = b.material(kind=matmod.MAT_DISNEY, kd=(0.8, 0.3, 0.2),
+                        aux=(0.3, 0.2, 0.5, 0.5, 0.4, 0.8, 0.4, 0.0))
+    sss = b.subsurface(sigma_a=(0.2, 0.5, 1.5), sigma_s=(30.0, 30.0, 30.0), g=0.0, eta=1.33)
+    hair = b.material(kind=matmod.MAT_HAIR, kd=(0.3, 0.2, 0.1), ks=(0.4, 0.4, 0.4),
+                      roughness=(0.3, 0.3))
+    fourier = b.fourier(table=fourier_table)
+    s = 1.0
+    b.add_quad([0, 0, 0], [s, 0, 0], [s, 0, -s], [0, 0, -s], floor)
+    b.add_quad([0, s, 0], [0, s, -s], [s, s, -s], [s, s, 0], white)
+    b.add_quad([0, 0, -s], [s, 0, -s], [s, s, -s], [0, s, -s], back)
+    b.add_quad([0, 0, 0], [0, 0, -s], [0, s, -s], [0, s, 0], left)
+    b.add_quad([s, 0, 0], [s, s, 0], [s, s, -s], [s, 0, -s], right)
+    b.add_sphere([0.3, 0.18, -0.6], 0.18, mirror)
+    b.add_sphere([0.7, 0.15, -0.35], 0.15, glass)
+    for i, m in enumerate((metal, plastic, uber, disney, sss, hair, fourier)):
+        b.add_sphere([0.1 + 0.1333 * i, 0.065, -0.86], 0.065, m)
+    e, c, y = 0.22, s / 2, s - 1e-3
+    b.area_light_quad([c - e, y, -c + e], [c - e, y, -c - e],
+                      [c + e, y, -c - e], [c + e, y, -c + e], radiance=(12.0, 12.0, 12.0))
+    return b
+
+
+def appearance_box(device=None, tile=clmod.TILE, marble=True):
+    """The appearance box (appearance_rows) on `device`; its Fourier
+    sphere carries the Lambertian table of albedo (0.6, 0.4, 0.3)."""
+    device = resolve_device(device)
+    b = appearance_rows(_Builder(), make_lambertian_table((0.6, 0.4, 0.3), device=device),
+                        marble)
+    return b.build(device, tile)
 
 
 def all_kinds_rows(tri_ids):

@@ -46,13 +46,19 @@ def reference_jit():
         if fun is None:
             return lambda f: jit(f, **kw)
         jitted, cache = real(fun, **kw), {}
+        static = kw.get("static_argnums", ())
+        static = (static,) if isinstance(static, int) else tuple(static)
 
         def call(*args):
-            leaves, tree = jax.tree_util.tree_flatten(args)
-            key = (tree, tuple((np.shape(x), np.result_type(x)) for x in leaves))
+            # a compiled program takes the dynamic arguments only; the
+            # static ones are part of its key
+            dyn = tuple(a for i, a in enumerate(args) if i not in static)
+            leaves, tree = jax.tree_util.tree_flatten(dyn)
+            key = (tree, tuple((np.shape(x), np.result_type(x)) for x in leaves),
+                   tuple(args[i] for i in static))
             if key not in cache:
                 cache[key] = jitted.lower(*args).compile(JAX_COMPILE)
-            return cache[key](*args)
+            return cache[key](*dyn)
         return call
 
     jax.jit = jit

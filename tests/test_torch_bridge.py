@@ -1,8 +1,8 @@
 """The bridge refuses what the port would drop without a word: a scene
 tree that does not state its quadric and instance counts or its media,
 one that states quadrics and leaves out their arrays, one with
-instances, and a material table that leaves out a texture channel the
-port does not have or its medium interface columns. The Cornell box's
+instances, and a material table that leaves out a texture channel or its
+medium interface columns. The Cornell box's
 tree (two spheres) bridges; a fog tree keeps its medium, and a table
 with interface columns keeps them."""
 import numpy as np
@@ -40,16 +40,21 @@ def test_tree_without_counts_is_refused(drop):
         bridge.scene_from_numpy(dict(mesh, instance_count=1), "cpu", tile=256)
 
 
-@pytest.mark.parametrize("channel", tmat.UNPORTED_CHANNELS)
+@pytest.mark.parametrize("channel", tmat.TEXTURE_COLUMNS)
 def test_material_table_without_a_channel_is_refused(channel):
+    """A table that leaves out a texture channel is refused; one that
+    textures the channel keeps it."""
     mats = scene_tree(mesh_scene(subdivisions=1, use_bvh=True))["materials"]
-    assert all((np.asarray(mats[ch]) < 0).all() for ch in tmat.UNPORTED_CHANNELS)
+    assert all((np.asarray(mats[ch]) < 0).all() for ch in tmat.TEXTURE_COLUMNS
+               if ch != "kd_tex")
     tmat.materials_from_numpy(mats, "cpu")
     with pytest.raises(NotImplementedError):
         tmat.materials_from_numpy({k: v for k, v in mats.items() if k != channel}, "cpu")
-    with pytest.raises(NotImplementedError):
-        tmat.materials_from_numpy(dict(mats, **{channel: np.zeros_like(mats[channel])}),
-                                  "cpu")
+    table = tmat.materials_from_numpy(dict(mats, **{channel: np.zeros_like(mats[channel])}),
+                                      "cpu")
+    assert getattr(table, channel).tolist() == [0] * len(mats["kind"])
+    assert (table.has_bump if channel == "bump_tex"
+            else channel[:-4] in table.tex_channels)
 
 
 @pytest.mark.parametrize("make", [fog_scene, smoke_scene])

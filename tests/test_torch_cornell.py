@@ -26,6 +26,7 @@ from pbrt_tpu.oracle import cpu_reference as oracle
 from scenes.cornell import cornell_camera as jcornell_camera
 from scenes.cornell import cornell_spheres as jcornell_spheres
 from tests.test_oracle import _check
+from tests.test_torch_bdpt import reference_jit
 from tests.test_torch_shade import scene_tree
 
 from pbrt_tpu_torch import bridge, scenes as tscenes
@@ -69,9 +70,10 @@ def render_pair(integrator, specular, light, kind="zerotwo", res=RES, spp=SPP, j
                                  sampler=s.SamplerConfig(kind=kind, spp=spp))
                   for m, s in ((jdriver, jsmp), (tdriver, tsmp))]
     jmod, tmod = (jdirect, tdirect) if integrator == "direct" else (jpath, tpath)
-    img_j = np.asarray(jdriver.render(jcornell_spheres(specular=specular, light=light),
-                                      jcornell_camera((res, res)), jcfg, jmod.make_li(jcfg),
-                                      jit=jit))
+    with reference_jit():
+        img_j = np.asarray(jdriver.render(jcornell_spheres(specular=specular, light=light),
+                                          jcornell_camera((res, res)), jcfg, jmod.make_li(jcfg),
+                                          jit=jit))
     img_t = tdriver.render(tscenes.cornell_spheres(specular, light, "cpu", tile=256),
                            tscenes.cornell_camera((res, res), "cpu"), tcfg,
                            tmod.make_li(tcfg)).numpy()

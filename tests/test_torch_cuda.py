@@ -554,3 +554,74 @@ def test_sample_le_on_the_card_matches_the_cpu(card):
         np.testing.assert_allclose(got[0][k].numpy(), got[1][k].numpy(), rtol=1e-4, atol=1e-5,
                                    err_msg=k)
     assert (got[0]["le"].sum(-1) > 0).float().mean() > 0.5
+
+
+@pytest.mark.cuda
+def test_subsurface_probe_windows_equal_plain_versions(card):
+    """The closest-hit wavefronts of a subsurface probe (per-lane t_max, t_min
+    1e-4, dead lanes) on the bench blob: coverage and the closest-hit kernel
+    against their plain versions, bit for bit with equal test counts."""
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.core import samplers as smp
+    from pbrt_tpu_torch.integrate import driver, path
+    scene = scenes.bench_scene(3, "cuda", tile=TILE, blob="subsurface")
+    cam = scenes.bench_camera((64, 64), "cuda")
+    cfg = driver.RenderConfig(width=64, height=64, spp=1, max_depth=2,
+                              sampler=smp.SamplerConfig(kind="zerotwo", spp=1))
+    sent, real = [], tcl._trace
+    tcl._trace = lambda cs, o, d, t_min, t_max, tile, flag=None: (
+        sent.append((o, d, t_min, t_max, flag)), real(cs, o, d, t_min, t_max, tile, flag))[1]
+    try:
+        driver.render(scene, cam, cfg, path.make_li(cfg))
+    finally:
+        tcl._trace = real
+    probes_ = [w for w in sent[1:] if w[4] is None]
+    assert len(probes_) == 4
+    assert any(bool(((w[3] > 0) & torch.isfinite(w[3])).any()) for w in probes_)
+    cs = scene.clusters
+    for o, d, t_min, t_max, _ in probes_:
+        _, rays, _ = tcl.prepare(cs, o, d, t_min, t_max, TILE)
+        n_live = int((rays[7] > rays[6]).sum())
+        nlt = torch.tensor([-(-n_live // TILE)], dtype=torch.int32, device="cuda")
+        tn, cb = tkern.coverage(rays, cs.bounds, nlt, cs.n_clusters, TILE)
+        assert all(torch.equal(a, b) for a, b in zip(
+            (tn, cb), tkern.coverage_plain(rays, cs.bounds, nlt, cs.n_clusters, TILE)))
+        corder, tnear, counts, covbits = tcl.tile_cluster_order(cs, rays, TILE)
+        args = (cs.packed, rays, None, corder, tnear, counts, covbits, TILE)
+        for a, b in zip(tkern.closest(*args), tkern.closest_plain(*args)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_every_material_and_texture_kind_on_the_card(card):
+    """resolve, sample, evaluate_f and pdf of the appearance box's rows
+    (every material kind but mix, every texture kind, every channel) on
+    65,536 lanes, on the card against the CPU: rtol 1e-4, atol 1e-5 but
+    for at most 0.5% of lanes (the card's transcendentals round
+    differently, and an ulp moves a sample or a noise octave sum)."""
+    from pbrt_tpu_torch import scenes
+    from pbrt_tpu_torch.shade import materials as tmat
+    r = np.random.RandomState(12)
+    n = 1 << 16
+    wo, wi = (r.randn(n, 3) for _ in range(2))
+    arrs = dict(mid=r.randint(0, 16, n), uv=(r.rand(n, 2) * 4 - 2).astype(np.float32),
+                p=r.rand(n, 3).astype(np.float32), fp=r.rand(n).astype(np.float32) * 0.01,
+                wo=(wo / np.linalg.norm(wo, axis=-1, keepdims=True)).astype(np.float32),
+                wi=(wi / np.linalg.norm(wi, axis=-1, keepdims=True)).astype(np.float32),
+                u=r.rand(n).astype(np.float32), u2=r.rand(n, 2).astype(np.float32))
+    out = []
+    for dev in ("cuda", "cpu"):
+        box = scenes.appearance_box(dev)
+        m = box.materials
+        t = {k: torch.as_tensor(v, device=dev) for k, v in arrs.items()}
+        lp = tmat.resolve(m, t["mid"] % m.kind.shape[0], t["uv"], t["p"], box.textures,
+                          fp=t["fp"])
+        k = m.kinds_present
+        res = [lp.kd, lp.ks, lp.kr, lp.kt, lp.ax, lp.sigma,
+               tmat.evaluate_f(lp, k, t["wo"], t["wi"]), tmat.pdf(lp, k, t["wo"], t["wi"]),
+               *tmat.sample(lp, k, t["wo"], t["u"], t["u2"])[:3]]
+        out.append([x.cpu().numpy().astype(np.float64) for x in res])
+    for i, (a, b) in enumerate(zip(*out)):
+        bad = ~np.isclose(a, b, rtol=1e-4, atol=1e-5)
+        bad = bad.reshape(n, -1).any(-1)
+        assert bad.mean() <= 5e-3, (i, bad.sum())

@@ -26,6 +26,7 @@ from pbrt_tpu.integrate import driver as jdriver
 from pbrt_tpu.shade import materials as jmat
 from scenes.bunny import mesh_scene, mesh_camera
 from tests.test_oracle import _check
+from tests.test_torch_bdpt import reference_jit
 from tests.test_torch_shade import scene_tree
 
 from pbrt_tpu_torch import bridge
@@ -63,7 +64,8 @@ def test_render_matches_jax(scenes, case):
                                 sampler=jsmp.SamplerConfig(kind="zerotwo", spp=SPP))
     tcfg = tdriver.RenderConfig(width=RES, height=RES, spp=SPP,
                                 sampler=tsmp.SamplerConfig(kind="zerotwo", spp=SPP))
-    img_j = np.asarray(jdriver.render(js, jc, jcfg, make_j(jcfg)))
+    with reference_jit():
+        img_j = np.asarray(jdriver.render(js, jc, jcfg, make_j(jcfg)))
     before = (tkern.coverage.launches, tkern.closest.launches, tkern.occluded.launches)
     img_t = tdriver.render(ts, tc, tcfg, make_t(tcfg)).numpy()
     # the CPU runs the plain versions: no kernel launch is counted

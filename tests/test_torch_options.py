@@ -19,6 +19,7 @@ from pbrt_tpu.lights import distrib as jdistrib, lights as jlights
 from scenes.cornell import cornell_camera as jcornell_camera
 from scenes.cornell import cornell_spheres as jcornell_spheres
 from tests.test_oracle import _check
+from tests.test_torch_bdpt import reference_jit
 from tests.test_torch_core import _camera_dict
 from tests.test_torch_cornell import RES, SPP, render_pair
 from tests.test_torch_lights import tri_lights, with_lights
@@ -49,7 +50,8 @@ def test_path_under_light_strategy(strategy):
                                  sampler=s.SamplerConfig(kind="zerotwo", spp=SPP))
                   for m, s in ((jdriver, jsmp), (tdriver, tsmp))]
     jc = jcornell_camera((RES, RES))
-    img_j = np.asarray(jdriver.render(js, jc, jcfg, jpath.make_li(jcfg)))
+    with reference_jit():
+        img_j = np.asarray(jdriver.render(js, jc, jcfg, jpath.make_li(jcfg)))
     img_t = tdriver.render(ts, bridge.camera_from_numpy(_camera_dict(jc), "cpu"), tcfg,
                            tpath.make_li(tcfg)).numpy()
     assert img_t.mean() > 0.1

@@ -18,6 +18,7 @@ from pbrt_tpu.integrate import driver as jdriver, path as jpath
 from pbrt_tpu.core import samplers as jsmp
 from scenes.bunny import mesh_scene, mesh_camera
 from tests.test_oracle import _check
+from tests.test_torch_bdpt import reference_jit
 from tests.test_torch_core import _camera_dict
 from tests.test_torch_shade import scene_tree
 
@@ -52,8 +53,9 @@ def test_render_matches_jax(jax_scene):
     js, jc = jax_scene
     jcfg = jdriver.RenderConfig(width=RES, height=RES, spp=spp, max_depth=DEPTH,
                                 sampler=jsmp.SamplerConfig(kind="zerotwo", spp=spp))
-    img_j = np.asarray(jdriver.render(js, jc, jcfg, jpath.make_li(jcfg, camera=jc,
-                                                                  compact_from=1)))
+    with reference_jit():
+        img_j = np.asarray(jdriver.render(js, jc, jcfg, jpath.make_li(jcfg, camera=jc,
+                                                                      compact_from=1)))
     img_t = _port_render(bench_scene(SUBDIV, "cpu", tile=TILE),
                          bench_camera((RES, RES), "cpu"), spp)
     assert np.isfinite(img_t).all()

@@ -27,16 +27,18 @@ def _lanes(spp=None):
 
 @pytest.mark.parametrize("kind,spp,jitter", [
     ("stratified", 16, True), ("stratified", 6, False), ("maxmin", 8, True),
-    ("halton", 16, True), ("sobol", 16, True)])
+    ("halton", 16, True), ("sobol", 16, True), ("zerotwo", 16, True), ("random", 16, True)])
 def test_streams_equal_bit_for_bit(kind, spp, jitter):
     """sample_1d and sample_2d at dims 0 (the film; maxmin's net), 5,
-    159, 160 (past the Sobol' table: clamped) and 9000. Stratified takes
-    sample indices below spp, as the driver gives it."""
+    159, 160 (past the Sobol' table: clamped), 4005 and 4044 (the first
+    and last of the subsurface leg's at depth 5: path_sss.DIM_SSS) and
+    9000. Stratified takes sample indices below spp, as the driver gives
+    it."""
     P, S = _lanes(spp if kind == "stratified" else None)
     jc = jsmp.SamplerConfig(kind=kind, spp=spp, seed=3, jitter=jitter)
     tc = tsmp.SamplerConfig(kind=kind, spp=spp, seed=3, jitter=jitter)
     tp, ts = torch.as_tensor(P.astype(np.int64)), torch.as_tensor(S.astype(np.int64))
-    for dim in (0, 5, 159, 160, 9000):
+    for dim in (0, 5, 159, 160, 4005, 4044, 9000):
         for jfn, tfn in ((jsmp.sample_1d, tsmp.sample_1d), (jsmp.sample_2d, tsmp.sample_2d)):
             j = np.asarray(jfn(jc, jnp.asarray(P), jnp.asarray(S), dim))
             t = tfn(tc, tp, ts, dim).numpy()

@@ -40,9 +40,8 @@ def scene_tree(js):
                        "material_id", "light_id")),
         quad=a(js.quad, js.quad._fields) if n_quad else None,
         clusters=a(js.clusters, js.clusters._fields) if js.clusters is not None else None,
-        materials=a(js.materials, ("kind", "kd", "ks", "kr", "kt", "roughness", "eta",
-                                   "sigma", "remap_roughness", "kd_tex", "ks_tex", "kr_tex",
-                                   "kt_tex", "roughness_tex", "sigma_tex", "bump_tex")),
+        materials=a(js.materials, ("kind", "remap_roughness", *tmat.FLOAT_COLUMNS,
+                                   *tmat.TEXTURE_COLUMNS)),
         lights=lights, textures=None,
         light_distrib=(a(js.light_distrib, js.light_distrib._fields)
                        if js.light_distrib is not None else None),
@@ -53,9 +52,12 @@ def scene_tree(js):
     for k in ("med_inside", "med_outside"):
         col = getattr(js.materials, k)
         tree["materials"][k] = None if col is None else np.asarray(col)
+    sss, ft = js.materials.sss_table, js.materials.fourier_table
+    tree["materials"]["sss_table"] = None if sss is None else a(sss, sss._fields)
+    tree["materials"]["fourier_table"] = None if ft is None else dict(
+        a(ft, ("mu", "a", "m")), eta=ft.eta, m_max=ft.m_max)
     if js.textures is not None:
-        tree["textures"] = a(js.textures, ("kind", "su", "sv", "atlas_slot", "atlas",
-                                           "lvl_size", "lvl_off"))
+        tree["textures"] = a(js.textures, ttex.COLUMNS)
         tree["textures"]["atlas_base"] = js.textures.atlas_base
     return tree
 

@@ -26,6 +26,7 @@ from pbrt_tpu.integrate import driver as jdriver, volpath as jvolpath
 from scenes.volumetric import fog_scene as jfog_scene, smoke_scene as jsmoke_scene
 from scenes.volumetric import volumetric_camera as jcamera
 from tests.test_oracle import _check
+from tests.test_torch_bdpt import reference_jit
 from tests.test_torch_shade import scene_tree
 from tests.test_torch_media import one_torch_thread  # noqa: F401 (autouse)
 
@@ -56,7 +57,9 @@ def test_config4_matches_jax(variant, res, spp):
     ts = (tscenes.fog_scene if variant == "fog" else tscenes.smoke_scene)(device="cpu",
                                                                            tile=256)
     assert ts.media.kinds_present == js.media.kinds_present
-    img_j = np.asarray(jdriver.render(js, jcamera((res, res)), jcfg, jvolpath.make_li(jcfg)))
+    with reference_jit():
+        img_j = np.asarray(jdriver.render(js, jcamera((res, res)), jcfg,
+                                          jvolpath.make_li(jcfg)))
     img_t = _port(ts, tscenes.volumetric_camera((res, res), "cpu"), tcfg)
     assert img_t.mean() > 0.1
     _check(img_t, img_j)

@@ -11,6 +11,7 @@ from pbrt_tpu.integrate import driver as jdriver, whitted as jwhitted
 from scenes.cornell import cornell_camera as jcornell_camera
 from scenes.cornell import cornell_spheres as jcornell_spheres
 from tests.test_oracle import _check
+from tests.test_torch_bdpt import reference_jit
 from tests.test_torch_media import one_torch_thread  # noqa: F401 (autouse)
 
 from pbrt_tpu_torch import scenes as tscenes
@@ -25,9 +26,10 @@ def test_whitted_on_the_specular_cornell_box_matches_jax(monkeypatch):
     jcfg, tcfg = [m.RenderConfig(width=RES, height=RES, spp=SPP, max_depth=DEPTH,
                                  sampler=s.SamplerConfig(kind="zerotwo", spp=SPP))
                   for m, s in ((jdriver, jsmp), (tdriver, tsmp))]
-    img_j = np.asarray(jdriver.render(jcornell_spheres(specular=True),
-                                      jcornell_camera((RES, RES)), jcfg,
-                                      jwhitted.make_li(jcfg)))
+    with reference_jit():
+        img_j = np.asarray(jdriver.render(jcornell_spheres(specular=True),
+                                          jcornell_camera((RES, RES)), jcfg,
+                                          jwhitted.make_li(jcfg)))
     scene = tscenes.cornell_spheres(True, "area", "cpu", tile=256)
     traced = []
     real_trace, real_occ = tcl._trace, tcl.occluded

@@ -129,6 +129,23 @@ Phases, each printing one line with its elapsed seconds:
   26. at 16×16 on the card against the plain versions on the CPU (the pixel
      check): path on the appearance box and on the subsurface bench,
      direct, volpath, BDPT (1 spp, depth 3) and SPPM on the box;
+  27. the bench scene as a scene file: the blob written as a binary PLY
+     (geom.meshio.write_ply) beside a .pbrt file of the room, its light and
+     the bench camera, loaded by pbrt_loader.load_pbrt on the card (its
+     triangles and normals bit for bit the blob's, the cluster set built),
+     one path frame at 512×512, depth 5, with the file's sampler (zerotwo,
+     1 spp): its primary and first fused wavefronts held to the plain
+     versions on 32 tiles, launches 6/6/0; the image written by
+     film.io.write_exr / write_pfm / write_npy / write_png and read back,
+     the first three bit for bit;
+  28. the loaded scene, one frame each at 512×512, its primary wavefront held
+     on 32 tiles: thin lens + mitchell, orthographic + gaussian, environment +
+     triangle and realistic (DEMO_LENS, its vignetted share) + lanczos
+     through path (6/6/0), thin lens + mitchell through direct (3/2/1);
+     phases 27–28 print ms, GPU launches, 0 NaN and the card's nvidia-smi line;
+  29. the thin-lens mitchell path render at 16×16 on the card against the
+     CPU (the pixel check; pixels whose filter weights sum to 0 or less
+     held apart at rtol 1e-4);
   7. the probe kernels (kernels/probes.py): the compaction probe at tiles
      256 and 1,024 against its plain version (val 0 and -0.0 on some
      lanes), its device time (torch.profiler) beside an empty kernel's;
@@ -849,6 +866,47 @@ def cornell_phases(kern, clmod, scenemod, driver, direct, path, smp, dev, tile):
     return by_path, frames_by
 
 
+def check_small(driver, smp, dev, tag, make_scene, make_li, res, spp, make_cam, filt=None):
+    """A res×res render at `spp` (zerotwo, depth 5, the box filter or
+    `filt`) through the kernels on `dev` against the plain versions on the
+    CPU: the pixel check. Under a filter with negative lobes, a pixel whose
+    weights sum to 0 or less is divided by 1e-10 (film.resolve, as the JAX
+    package does): those pixels are held apart at rtol 1e-4."""
+    import numpy as np
+    kw = {} if filt is None else {"filter": filt}
+    c = driver.RenderConfig(width=res, height=res, spp=spp, max_depth=5,
+                            sampler=smp.SamplerConfig(kind="zerotwo", spp=spp), **kw)
+    imgs = [driver.render(make_scene(d), make_cam((res, res), d), c,
+                          make_li(c)).cpu().numpy() for d in (dev, "cpu")]
+    pid, sid = driver.lane_ids(c, 0, spp, "cpu")
+    fw = driver.camera_rays(make_cam((res, res), "cpu"), c, pid, sid)[3]
+    flat = (fw.sum(0) <= 0).reshape(res, res).numpy()
+    frac, mdiff, ok = pixel_check(imgs[0][~flat], imgs[1][~flat])
+    apart = bool(np.allclose(imgs[0][flat], imgs[1][flat], rtol=1e-4, atol=0))
+    log(tag, pixels_within_tol=f"{frac:.4f}", mean_diff=f"{mdiff:.3e}",
+        mean=f"{imgs[0][~flat].mean():.6f}", nonpositive_weight_pixels=int(flat.sum()),
+        those_within_rtol=apart, passed=ok and apart)
+    if not ok or not apart or not np.isfinite(imgs[0]).all():
+        fail(f"{tag}: the render through the kernels disagrees with the plain versions")
+
+
+def hold_wavefronts(kern, clmod, driver, tile, tag, scene, cam, cfg, li, want, first,
+                    limit=None):
+    """One frame's wavefronts, in order: `want` the (kind, lanes, shadow
+    lanes) of each; the first `first` held against the plain versions (on
+    `limit` tiles spread over each, None for every tile)."""
+    t0 = time.perf_counter()
+    sent = sent_wavefronts(clmod, lambda: driver.render(scene, cam, cfg, li))
+    shapes = [(k, int(w[0].shape[0]), None if k != "closest" or w[4] is None
+               else int(w[4].sum())) for k, w in sent]
+    if shapes != want:
+        fail(f"{tag}: traced {shapes}, expected {want}")
+    held = check_sent(kern, clmod, scene.clusters, sent[:first], tile, tag, limit)
+    del sent
+    log(f"{tag}_wavefronts", held=held, compared_tiles_each=limit or "all",
+        seconds=f"{time.perf_counter() - t0:.2f}", all_compared_equal=True)
+
+
 def volpath_phases(kern, clmod, driver, smp, dev, tile, kernels):
     """Phases 12–14, baseline config 4 and Whitted. Before each path's
     timed frames, the tracers on the wavefronts of one frame against their
@@ -870,30 +928,10 @@ def volpath_phases(kern, clmod, driver, smp, dev, tile, kernels):
     by_path, frames_by = {}, {}
 
     def small_check(tag, make_scene, make_li, res, spp, make_cam=scenes_mod.cornell_camera):
-        c = driver.RenderConfig(width=res, height=res, spp=spp, max_depth=5,
-                                sampler=smp.SamplerConfig(kind="zerotwo", spp=spp))
-        imgs = [driver.render(make_scene(d), make_cam((res, res), d), c,
-                              make_li(c)).cpu().numpy() for d in (dev, "cpu")]
-        frac, mdiff, ok = pixel_check(*imgs)
-        log(tag, pixels_within_tol=f"{frac:.4f}", mean_diff=f"{mdiff:.3e}",
-            mean=f"{imgs[0].mean():.6f}", passed=ok)
-        if not ok or not np.isfinite(imgs[0]).all():
-            fail(f"{tag}: the render through the kernels disagrees with the plain versions")
+        check_small(driver, smp, dev, tag, make_scene, make_li, res, spp, make_cam)
 
     def hold_frame(tag, scene, cam, cfg, li, want, first, limit=None):
-        """One frame's wavefronts, in order: `want` the (kind, lanes, shadow
-        lanes) of each; the first `first` held against the plain versions
-        (on `limit` tiles spread over each, None for every tile)."""
-        t0 = time.perf_counter()
-        sent = sent_wavefronts(clmod, lambda: driver.render(scene, cam, cfg, li))
-        shapes = [(k, int(w[0].shape[0]), None if k != "closest" or w[4] is None
-                   else int(w[4].sum())) for k, w in sent]
-        if shapes != want:
-            fail(f"{tag}: traced {shapes}, expected {want}")
-        held = check_sent(kern, clmod, scene.clusters, sent[:first], tile, tag, limit)
-        del sent
-        log(f"{tag}_wavefronts", held=held, compared_tiles_each=limit or "all",
-            seconds=f"{time.perf_counter() - t0:.2f}", all_compared_equal=True)
+        hold_wavefronts(kern, clmod, driver, tile, tag, scene, cam, cfg, li, want, first, limit)
 
     def frame_phase(tag, scene, cam, cfg, li, want, frames=2, extra=dict):
         t0 = time.perf_counter()
@@ -1337,6 +1375,186 @@ def appearance_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line):
     return by_path, frames_by
 
 
+# The bench scene (scenes.bench_scene) as a scene file: the blob from
+# blob.ply, the room, its light and the bench camera. The loader has no
+# Texture directive, so the floor is the walls' matte
+BENCH_PBRT = """LookAt 0.5 0.5 1.35  0.5 0.35 -0.5  0 1 0
+Camera "perspective" "float fov" [42]
+Film "image" "integer xresolution" [{res}] "integer yresolution" [{res}]
+Sampler "lowdiscrepancy" "integer pixelsamples" [1]
+Integrator "path" "integer maxdepth" [5]
+WorldBegin
+  AttributeBegin
+    Material "plastic" "rgb Kd" [0.4 0.25 0.12] "rgb Ks" [0.3 0.3 0.3] "float roughness" [0.08]
+    Shape "plymesh" "string filename" "blob.ply"
+  AttributeEnd
+  Material "matte" "rgb Kd" [0.73 0.73 0.73]
+  Shape "trianglemesh" "point P" [0 0 0  1 0 0  1 0 -1  0 0 -1] "integer indices" [0 1 2 0 2 3]
+  Shape "trianglemesh" "point P" [0 1 0  0 1 -1  1 1 -1  1 1 0] "integer indices" [0 1 2 0 2 3]
+  Shape "trianglemesh" "point P" [0 0 -1  1 0 -1  1 1 -1  0 1 -1] "integer indices" [0 1 2 0 2 3]
+  AttributeBegin
+    Material "matte" "rgb Kd" [0 0 0]
+    AreaLightSource "diffuse" "rgb L" [14 14 14]
+    Shape "trianglemesh"
+          "point P" [0.25 0.999 -0.25  0.25 0.999 -0.75  0.75 0.999 -0.75  0.75 0.999 -0.25]
+          "integer indices" [0 1 2 0 2 3]
+  AttributeEnd
+WorldEnd
+"""
+
+
+def frontend_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line, res=512):
+    """Phases 27–29: the front end and the sensor. 27: the bench blob
+    written as a binary PLY beside a .pbrt file of the bench room, light
+    and camera; load_pbrt on the card (its triangles bit for bit the
+    blob's), one path frame (512×512, depth 5, the file's zerotwo at 1 spp,
+    compact_from=1) with its primary and first fused wavefronts held to the
+    plain versions on PLAIN_TILES tiles, the image through write_exr,
+    write_pfm, write_npy and write_png and back (the first three bit for
+    bit). 28: the loaded scene through each other camera and filter, one
+    frame each at 512×512, its primary wavefront held: thin lens + mitchell,
+    orthographic + gaussian, environment + triangle, realistic (DEMO_LENS) +
+    lanczos (path), thin lens + mitchell (direct). 29: the thin-lens
+    mitchell path render at 16×16 on the card against the CPU. Each frame:
+    ms, GPU launches, launches, 0 NaN. Returns ({path: kernel launches},
+    {path: frames})."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from pbrt_tpu_torch.cameras import cameras as cammod, realistic
+    from pbrt_tpu_torch.core import transform as tf
+    from pbrt_tpu_torch.film import filters, io as imageio
+    from pbrt_tpu_torch.geom import meshio
+    from pbrt_tpu_torch.integrate import direct, path
+    from pbrt_tpu_torch.pbrt_loader import load_pbrt
+    by_path, frames_by = {}, {}
+    six = {"coverage": 6, "closest": 6, "occluded": 0}
+    three = {"coverage": 3, "closest": 2, "occluded": 1}
+
+    def frame_phase(tag, scene, cam, cfg, li, want, first, extra=None):
+        n = cfg.width * cfg.height * cfg.spp
+        if want == six:       # the primary, then five fused launches of m + m lanes
+            widths = [n] + [path._compact_width(n, b, 1) for b in range(1, cfg.max_depth)]
+            shapes = [("closest", n, None)] + [("closest", 2 * m, m) for m in widths]
+        else:                 # the primary, the shadow query, the BSDF-sampled ray
+            shapes = [("closest", n, None), ("occluded", n, None), ("closest", n, None)]
+        hold_wavefronts(kern, clmod, driver, tile, tag, scene, cam, cfg, li, shapes, first,
+                        PLAIN_TILES)
+        t0 = time.perf_counter()
+
+        def render():
+            return driver.render(scene, cam, cfg, li)
+
+        (img, stats), ms, launches = timed_frames(render, kernels, 1)
+        by_path[tag], frames_by[tag] = launches, 1
+        n_nan = int(torch.isnan(img).sum())
+        log(tag, resolution=f"{cfg.width}x{cfg.height}", spp=cfg.spp, depth=cfg.max_depth,
+            camera=type(cam).__name__, filter=cfg.filter.kind, frame_ms=ms,
+            rays_per_frame=float(stats["rays_traced"]),
+            gpu_launches_per_frame=gpu_launches(render), launches_per_frame=launches,
+            image_mean=f"{float(img[torch.isfinite(img)].mean()):.6f}", nan=n_nan,
+            **(extra or {}), card=f"'{smi_line}'", seconds=f"{time.perf_counter() - t0:.2f}")
+        if n_nan or not bool(torch.isfinite(img).all()) \
+                or tuple(img.shape) != (cfg.height, cfg.width, 3):
+            fail(f"{tag}: image is not finite")
+        if launches != want:
+            fail(f"{tag}: launches {launches}, expected {want} a frame")
+        return img
+
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # 27. the scene file, loaded on the card
+        t0 = time.perf_counter()
+        v, f, vn = meshio.bench_blob(6)
+        v = v + np.array([0.5, 0.35, -0.5], np.float32)
+        meshio.write_ply(os.path.join(tmp, "blob.ply"), v, f, normals=vn)
+        pbrt_file = os.path.join(tmp, "bench.pbrt")
+        with open(pbrt_file, "w") as fh:
+            fh.write(BENCH_PBRT.format(res=res))
+        scene, cam, opts = load_pbrt(pbrt_file, device=dev)
+        bits = lambda a: np.ascontiguousarray(a).view(np.int32)  # noqa: E731
+        same = bool(np.array_equal(bits(scene.tri.positions[:len(v)].cpu().numpy()), bits(v))
+                    and np.array_equal(scene.tri.indices[:len(f)].cpu().numpy(), f)
+                    and np.array_equal(bits(scene.tri.normals[:len(v)].cpu().numpy()),
+                                       bits(vn)))
+        want_opts = {"integrator": "path", "max_depth": 5, "sampler": "zerotwo", "spp": 1}
+        log("frontend_load", triangles=scene.tri.count, blob_triangles=len(f),
+            clusters=None if scene.clusters is None else scene.clusters.n_clusters,
+            blob_bit_equal=same, options=opts, camera=type(cam).__name__,
+            resolution=cam.resolution, seconds=f"{time.perf_counter() - t0:.2f}")
+        if not same or opts != want_opts or cam.resolution != (res, res) \
+                or scene.clusters is None or scene.tri.count != len(f) + 8:
+            fail("frontend_load: the loaded scene is not the bench scene file's")
+        cfg = driver.RenderConfig(width=res, height=res, spp=opts["spp"],
+                                  max_depth=opts["max_depth"],
+                                  sampler=smp.SamplerConfig(kind=opts["sampler"],
+                                                            spp=opts["spp"]))
+        li = path.make_li(cfg, camera=cam, compact_from=1, return_stats=True)
+        img = frame_phase("frontend_bench", scene, cam, cfg, li, six, 2)
+        t0 = time.perf_counter()
+        host = img.cpu().numpy()
+        equal = {}
+        for ext in ("exr", "pfm", "npy", "png"):
+            name = os.path.join(tmp, f"frontend.{ext}")
+            imageio.write_image(name, img)
+            back = imageio.read_image(name)
+            equal[ext] = (bool(np.array_equal(bits(back), bits(host))) if ext != "png"
+                          else back.shape == host.shape and bool(np.isfinite(back).all()))
+        log("frontend_images", bit_equal=equal, bytes={e: os.path.getsize(
+            os.path.join(tmp, f"frontend.{e}")) for e in equal},
+            seconds=f"{time.perf_counter() - t0:.2f}")
+        if not all(equal.values()):
+            fail(f"frontend_images: an image did not read back as written: {equal}")
+
+        # 28. the other cameras and filters on the loaded scene
+        c2w = tf.look_at_np([0.5, 0.5, 1.35], [0.5, 0.35, -0.5], [0.0, 1.0, 0.0])
+        ortho = c2w.copy()
+        ortho[:3, :3] *= 0.6                   # the room fills the screen window
+        lens = dict(lens_radius=0.025, focal_distance=1.8)
+
+        def thin(size, d):
+            return cammod.make_perspective(c2w, 42.0, size, d, **lens)
+
+        cams = {"thin": thin((res, res), dev),
+                "ortho": cammod.make_orthographic(ortho, (res, res), dev),
+                "env": cammod.make_environment(tf.look_at_np(
+                    [0.5, 0.5, -0.2], [0.5, 0.5, -1.0], [0.0, 1.0, 0.0]), (res, res), dev),
+                "real": realistic.make_realistic(c2w, realistic.DEMO_LENS, (res, res), dev,
+                                                 focus_distance=1.8)}
+        mitchell = filters.Filter("mitchell", radius=2.0)
+        for tag, key, filt, integ in (
+                ("cameras_thin_lens_mitchell", "thin", mitchell, "path"),
+                ("cameras_orthographic_gaussian", "ortho", filters.Filter("gaussian", radius=1.5),
+                 "path"),
+                ("cameras_environment_triangle", "env", filters.Filter("triangle", radius=2.0),
+                 "path"),
+                ("cameras_realistic_lanczos", "real", filters.Filter("lanczos", radius=4.0),
+                 "path"),
+                ("cameras_thin_lens_mitchell_direct", "thin", mitchell, "direct")):
+            c = cfg._replace(filter=filt)
+            cam_k = cams[key]
+            extra = None
+            if key == "real":
+                pid, sid = driver.lane_ids(c, 0, 1, dev)
+                cw = driver.camera_rays(cam_k, c, pid, sid)[2]
+                extra = {"vignetted_share": f"{1.0 - float(cw.mean()):.4f}"}
+            if integ == "path":
+                frame_phase(tag, scene, cam_k, c, path.make_li(c, camera=cam_k, compact_from=1,
+                                                               return_stats=True), six, 1, extra)
+            else:
+                frame_phase(tag, scene, cam_k, c, direct.make_li(c, "one", return_stats=True),
+                            three, 1, extra)
+        del scene, cams
+
+        # 29. 16×16, the thin lens and mitchell, the card against the CPU
+        check_small(driver, smp, dev, "cameras_thin_lens_mitchell_16x16",
+                    lambda d: load_pbrt(pbrt_file, device=d)[0], lambda c: path.make_li(c),
+                    16, 4, thin, filt=mitchell)
+    log("frontend_phases", seconds=f"{time.perf_counter() - t_all:.2f}")
+    return by_path, frames_by
+
+
 def free_port():
     import socket
     with socket.socket() as s:
@@ -1675,7 +1893,8 @@ def main():
                  volpath_phases(kern, clmod, driver, smp, dev, tile, kernels),
                  grad_phases(kern, clmod, driver, smp, dev, tile, kernels),
                  integrator_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line),
-                 appearance_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line)):
+                 appearance_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line),
+                 frontend_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line)):
         by_path.update(part[0])
         frames_by.update(part[1])
     check_lights(scenes_mod, lightsmod, distrib, dev)

@@ -5,16 +5,17 @@ package's Scene, QuadricSoA, ClusterSet, MaterialTable, TextureTable,
 LightTable, SpatialLightDistribution and MediumTable fields flattened to
 dicts by the caller — and returns the port's Scene,
 so both packages can render the very same scene. `camera_from_numpy`
-does the same for a perspective camera, and `bdpt_config`, `sppm_config`
-and `mlt_config` for the integrators' configs. Nothing here imports the
-JAX package."""
+does the same for a camera of any of the four kinds, and `bdpt_config`,
+`sppm_config` and `mlt_config` for the integrators' configs. Nothing here
+imports the JAX package."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from . import resolve_device
-from .cameras.cameras import PerspectiveCamera
+from .cameras import cameras as cammod
+from .cameras.realistic import RealisticCamera
 from .core import transform as tf
 from .core.samplers import SamplerConfig
 from .geom import cluster as clmod
@@ -84,8 +85,11 @@ def scene_from_numpy(tree, device=None, tile=clmod.TILE):
 
 
 def camera_from_numpy(cam, device=None):
-    """cam: dict of a perspective camera's fields; each transform is a
-    pair (m, m_inv) of (4, 4) arrays, used as given."""
+    """cam: dict of a camera's fields as numpy, each transform a pair (m,
+    m_inv) of (4, 4) arrays used as given, and "kind": the JAX package's
+    class name (PerspectiveCamera when absent; OrthographicCamera,
+    EnvironmentCamera or RealisticCamera). A realistic camera keeps its
+    element table and exit-pupil bounds as given."""
     device = resolve_device(device)
 
     def xf(pair):
@@ -94,12 +98,31 @@ def camera_from_numpy(cam, device=None):
                             torch.tensor(np.array(m_inv, np.float32), device=device))
 
     f = lambda k: float(np.float32(cam[k]))  # noqa: E731
-    return PerspectiveCamera(
-        camera_to_world=xf(cam["camera_to_world"]),
-        raster_to_camera=xf(cam["raster_to_camera"]),
-        lens_radius=f("lens_radius"), focal_distance=f("focal_distance"),
-        shutter_open=f("shutter_open"), shutter_close=f("shutter_close"),
-        area=f("area"), resolution=tuple(int(x) for x in cam["resolution"]))
+    kind = cam.get("kind", "PerspectiveCamera")
+    common = dict(camera_to_world=xf(cam["camera_to_world"]),
+                  shutter_open=f("shutter_open"), shutter_close=f("shutter_close"),
+                  resolution=tuple(int(x) for x in cam["resolution"]))
+    if kind == "PerspectiveCamera":
+        return cammod.PerspectiveCamera(raster_to_camera=xf(cam["raster_to_camera"]),
+                                        lens_radius=f("lens_radius"),
+                                        focal_distance=f("focal_distance"), area=f("area"),
+                                        **common)
+    if kind == "OrthographicCamera":
+        return cammod.OrthographicCamera(raster_to_camera=xf(cam["raster_to_camera"]),
+                                         lens_radius=f("lens_radius"),
+                                         focal_distance=f("focal_distance"), **common)
+    if kind == "EnvironmentCamera":
+        return cammod.EnvironmentCamera(**common)
+    if kind == "RealisticCamera":
+        table = lambda k: tuple(float(x) for x in np.asarray(cam[k], np.float32))  # noqa: E731
+        return RealisticCamera(
+            curvature_radius=table("curvature_radius"), thickness=table("thickness"),
+            eta=table("eta"), aperture_radius=table("aperture_radius"),
+            z_front=table("z_front"), film_diag=f("film_diag"),
+            exit_pupil=torch.tensor(np.array(cam["exit_pupil"], np.float32), device=device),
+            **common)
+    raise ValueError(f"camera kind {kind!r}: expected PerspectiveCamera, "
+                     "OrthographicCamera, EnvironmentCamera or RealisticCamera")
 
 
 def params_from_numpy(tree, device=None):

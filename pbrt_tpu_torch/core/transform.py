@@ -1,6 +1,7 @@
-"""4x4 transforms (counterpart of pbrt_tpu/core/transform.py, the parts
-the perspective camera uses). Matrices are built on the host in float64
-numpy and applied as float32 tensors."""
+"""4x4 transforms (counterpart of pbrt_tpu/core/transform.py but its
+quaternions and AnimatedTransform). Matrices are built on the host in
+numpy and applied as float32 tensors: the camera matrices in float64, the
+rotations in float32 as the JAX package builds them."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -33,6 +34,62 @@ def from_numpy(m, device, m_inv=None):
     m_inv = np.linalg.inv(m) if m_inv is None else np.asarray(m_inv, np.float64)
     return Transform(torch.tensor(m, dtype=torch.float32, device=device),
                      torch.tensor(m_inv, dtype=torch.float32, device=device))
+
+
+def from_matrix(m, device):
+    """Transform of the float32 matrix m (the JAX package's from_matrix)."""
+    return from_numpy(np.asarray(m, np.float32), device)
+
+
+def _sin_cos(theta_deg):
+    """float32 sin and cos of theta (degrees), through the float32 radians
+    the JAX package computes (theta · float32(π/180)); each correctly
+    rounded, where XLA's are within an ulp of it."""
+    t = np.float64(np.float32(theta_deg) * np.float32(np.pi / 180.0))
+    return np.float32(np.sin(t)), np.float32(np.cos(t))
+
+
+def rotate_x_np(theta_deg):
+    s, c = _sin_cos(theta_deg)
+    m = np.eye(4, dtype=np.float32)
+    m[1, 1], m[1, 2], m[2, 1], m[2, 2] = c, -s, s, c
+    return m
+
+
+def rotate_y_np(theta_deg):
+    s, c = _sin_cos(theta_deg)
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0], m[0, 2], m[2, 0], m[2, 2] = c, s, -s, c
+    return m
+
+
+def rotate_z_np(theta_deg):
+    s, c = _sin_cos(theta_deg)
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0], m[0, 1], m[1, 0], m[1, 1] = c, -s, s, c
+    return m
+
+
+def rotate_np(theta_deg, axis):
+    """float32 rotation by theta (degrees) about `axis`, the JAX package's
+    float32 arithmetic term for term (its inverse is the transpose)."""
+    a = np.asarray(axis, np.float32)
+    a = a / np.maximum(np.sqrt(np.sum(a * a)), np.float32(1e-20))
+    x, y, z = a
+    s, c = _sin_cos(theta_deg)
+    one_c = np.float32(1.0) - c
+    m = np.eye(4, dtype=np.float32)
+    m[:3, :3] = [[c + x * x * one_c, x * y * one_c - z * s, x * z * one_c + y * s],
+                 [x * y * one_c + z * s, c + y * y * one_c, y * z * one_c - x * s],
+                 [x * z * one_c - y * s, y * z * one_c + x * s, c + z * z * one_c]]
+    return m
+
+
+def orthographic_np(z_near, z_far):
+    m = np.eye(4)
+    m[2, 2] = 1.0 / (z_far - z_near)
+    m[2, 3] = -z_near / (z_far - z_near)
+    return m
 
 
 def look_at_np(pos, look, up):

@@ -4,32 +4,26 @@ subdivisions=6, in an open box with a wood-textured matte floor, a
 plastic blob and one quad area light; counterpart of
 scenes/bunny.mesh_scene with use_bvh=True) and the Cornell box with two
 spheres of the baseline configs (counterpart of
-scenes/cornell.cornell_spheres), through the parts of
-pbrt_tpu.api.SceneBuilder.build and geom.cluster.build_clusters they use;
-the Cornell box with a table of all eight light kinds, and config 2's
-published size; baseline config 4, the fog-filled box and its smoke
-variant (counterpart of scenes/volumetric.py), and the bench scene in
-fog."""
+scenes/cornell.cornell_spheres); the Cornell box with a table of all
+eight light kinds, and config 2's published size; baseline config 4, the
+fog-filled box and its smoke variant (counterpart of
+scenes/volumetric.py), the bench scene in fog, and the appearance box.
+Each is built with api.SceneBuilder."""
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
-import torch
 
 from . import resolve_device
+from .api import SceneBuilder
 from .cameras import cameras as cammod
 from .core import transform as tf
 from .geom import cluster as clmod
-from .geom.meshio import bench_blob
-from .geom.scene import Scene, world_bounds
-from .geom.types import (QUAD_CONE, QUAD_CYLINDER, QUAD_DISK, QUAD_HYPERBOLOID,
-                         QUAD_PARABOLOID, QUAD_SPHERE, quadrics_from_numpy,
-                         triangles_from_numpy)
+from .geom.meshio import bench_blob, read_ply
 from .lights import lights as lightsmod
 from .shade import materials as matmod
 from .shade import media as medmod
-from .shade import textures as texmod
 from .shade.fourier import make_lambertian_table
 
 # Baseline config 2 (BASELINE.json) at its published size: the Cornell box
@@ -48,219 +42,20 @@ def wood_image(size=512):
     return (base * (0.8 + 0.2 * planks[..., None])).astype(np.float32)
 
 
-class _Builder:
-    """The parts of SceneBuilder the native scenes use: meshes and quads,
-    the six quadrics, material rows of every kind and medium interfaces,
-    a texture table of every kind, area quad, point and infinite lights,
-    and one homogeneous or grid medium, built into the port's Scene."""
-
-    def __init__(self):
-        self.verts, self.normals, self.uvs, self.tris = [], [], [], []
-        self.mat, self.light, self.has_ns = [], [], []
-        self.quads = []       # (kind, obj_to_world, params, material, light)
-        self.materials, self.lights = [], []
-        self.textures = texmod.TextureBuilder()
-        self.env_image = self.env_to_world = None
-        self.media_rows, self.media_grid = None, None
-        self.vbase = 0
-        self.tbase = 0
-
-    def material(self, **kw):
-        self.materials.append(kw)
-        return len(self.materials) - 1
-
-    def matte(self, kd, sigma=0.0):
-        return self.material(kind=matmod.MAT_MATTE, kd=kd, sigma=sigma)
-
-    def plastic(self, kd, ks, roughness=0.1, remap=True):
-        return self.material(kind=matmod.MAT_PLASTIC, kd=kd, ks=ks,
-                             roughness=(roughness, roughness), remap_roughness=remap)
-
-    def glass(self, kr=1.0, kt=1.0, eta=1.5, roughness=0.0, remap=True):
-        return self.material(kind=matmod.MAT_GLASS, kr=kr, kt=kt, eta=eta,
-                             roughness=(roughness, roughness), remap_roughness=remap)
-
-    def metal(self, eta=(0.2, 0.92, 1.1), k=(3.9, 2.45, 2.14), roughness=0.01, ks=1.0,
-              remap=True):
-        return self.material(kind=matmod.MAT_METAL, metal_eta=eta, metal_k=k, ks=ks,
-                             roughness=(roughness, roughness), remap_roughness=remap)
-
-    def mirror(self, kr=0.9):
-        return self.material(kind=matmod.MAT_MIRROR, kr=kr)
-
-    def substrate(self, kd, ks, roughness=0.1, remap=True):
-        return self.material(kind=matmod.MAT_SUBSTRATE, kd=kd, ks=ks,
-                             roughness=(roughness, roughness), remap_roughness=remap)
-
-    def uber(self, kd=0.25, ks=0.25, kr=0.0, opacity=1.0, roughness=0.1, eta=1.5):
-        return self.material(kind=matmod.MAT_UBER, kd=kd, ks=ks, kr=kr, opacity=opacity,
-                             roughness=(roughness, roughness), eta=eta)
-
-    def translucent(self, kd=0.25, reflect=0.5, transmit=0.5):
-        return self.material(kind=matmod.MAT_TRANSLUCENT, kd=kd, kr=reflect, kt=transmit)
-
-    def fourier(self, table):
-        """A Fourier BSDF row on `table` (shade.fourier.FourierTable)."""
-        return self.material(kind=matmod.MAT_FOURIER, fourier_table=table)
-
-    def subsurface(self, sigma_a=(0.0011, 0.0024, 0.014), sigma_s=(2.55, 3.21, 3.77),
-                   g=0.0, eta=1.33, scale=1.0, roughness=0.0, remap=True):
-        """Tabulated-BSSRDF row (defaults about skim milk); kr = kt = 1, the
-        interface lobes weight by Fresnel themselves."""
-        aux = list(np.broadcast_to(np.asarray(sigma_a, np.float32), (3,))) \
-            + list(np.broadcast_to(np.asarray(sigma_s, np.float32), (3,))) + [g, scale]
-        return self.material(kind=matmod.MAT_SUBSURFACE, eta=eta, aux=aux, kr=1.0, kt=1.0,
-                             roughness=(roughness, roughness), remap_roughness=remap)
-
-    def add_mesh(self, v, f, material, normals=None, uvs=None, light=-1):
-        v = np.asarray(v, np.float32)
-        f = np.asarray(f, np.int32).reshape(-1, 3)
-        t0 = self.tbase
-        self.verts.append(v)
-        self.normals.append(np.zeros_like(v) if normals is None
-                            else np.asarray(normals, np.float32))
-        self.uvs.append(np.zeros((len(v), 2), np.float32) if uvs is None
-                        else np.asarray(uvs, np.float32))
-        self.tris.append(f + self.vbase)
-        self.mat.append(np.full(len(f), material, np.int32))
-        self.light.append(np.full(len(f), light, np.int32))
-        self.has_ns.append(np.full(len(f), normals is not None, bool))
-        self.vbase += len(v)
-        self.tbase += len(f)
-        return t0, self.tbase
-
-    def add_quad(self, p0, p1, p2, p3, material, light=-1):
-        uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
-        return self.add_mesh(np.array([p0, p1, p2, p3], np.float32),
-                             [[0, 1, 2], [0, 2, 3]], material, uvs=uv, light=light)
-
-    def _quadric(self, kind, o2w, params, material, light=-1):
-        self.quads.append((kind, np.asarray(o2w, np.float32),
-                           np.asarray(params, np.float32), material, light))
-        return len(self.quads) - 1
-
-    def add_sphere(self, center, radius, material, light=-1, z_min=None, z_max=None,
-                   phi_max=2 * np.pi):
-        o2w = np.eye(4, dtype=np.float32)
-        o2w[:3, 3] = center
-        r = float(radius)
-        return self._quadric(QUAD_SPHERE, o2w, [r, -r if z_min is None else z_min,
-                                                r if z_max is None else z_max, phi_max, 0, 0],
-                             material, light)
-
-    def add_disk(self, o2w, radius, material, height=0.0, inner_radius=0.0,
-                 phi_max=2 * np.pi, light=-1):
-        return self._quadric(QUAD_DISK, o2w, [radius, 0, 0, phi_max, height, inner_radius],
-                             material, light)
-
-    def add_cylinder(self, o2w, radius, z_min, z_max, material, phi_max=2 * np.pi, light=-1):
-        return self._quadric(QUAD_CYLINDER, o2w, [radius, z_min, z_max, phi_max, 0, 0],
-                             material, light)
-
-    def add_cone(self, o2w, radius, height, material, phi_max=2 * np.pi, light=-1):
-        return self._quadric(QUAD_CONE, o2w, [radius, 0, height, phi_max, height, 0],
-                             material, light)
-
-    def add_paraboloid(self, o2w, radius, z_min, z_max, material, phi_max=2 * np.pi,
-                       light=-1):
-        return self._quadric(QUAD_PARABOLOID, o2w, [radius, z_min, z_max, phi_max, 0, 0],
-                             material, light)
-
-    def add_hyperboloid(self, o2w, a, c, z_min, z_max, material, phi_max=2 * np.pi,
-                        light=-1):
-        return self._quadric(QUAD_HYPERBOLOID, o2w,
-                             [max(abs(z_min), abs(z_max)), z_min, z_max, phi_max, a, c],
-                             material, light)
-
-    def area_light_quad(self, p0, p1, p2, p3, radiance, two_sided=False):
-        material = self.matte(kd=0.0)
-        light_id = len(self.lights)
-        t0, t1 = self.add_quad(p0, p1, p2, p3, material, light=light_id)
-        self.lights.append(dict(kind=lightsmod.LIGHT_AREA_TRI, tri_ids=list(range(t0, t1)),
-                                L=radiance, two_sided=two_sided))
-        return light_id
-
-    def point_light(self, p, intensity):
-        self.lights.append(dict(kind=lightsmod.LIGHT_POINT, p=p, I=intensity))
-        return len(self.lights) - 1
-
-    def infinite_light(self, radiance=1.0, image=None, env_to_world=None):
-        self.lights.append(dict(kind=lightsmod.LIGHT_INFINITE, L=radiance))
-        self.env_image, self.env_to_world = image, env_to_world
-        return len(self.lights) - 1
-
-    def medium_interface(self, material, inside=-1, outside=0):
-        """The media a ray enters when it transmits into / out of surfaces
-        of `material` (-1 = vacuum)."""
-        self.materials[material]["med_inside"] = int(inside)
-        self.materials[material]["med_outside"] = int(outside)
-        return material
-
-    def set_homogeneous_medium(self, sigma_a, sigma_s, g=0.0):
-        """A homogeneous medium filling the scene (medium 0)."""
-        self.media_rows = [dict(kind=medmod.MEDIUM_HOMOGENEOUS, sigma_a=sigma_a,
-                                sigma_s=sigma_s, g=g)]
-        self.media_grid = None
-        return 0
-
-    def set_grid_medium(self, density, sigma_a, sigma_s, g=0.0, world_to_medium=None,
-                        scale=1.0):
-        """A density-grid medium filling the scene (medium 0)."""
-        row = dict(kind=medmod.MEDIUM_GRID, sigma_a=sigma_a, sigma_s=sigma_s, g=g,
-                   scale=scale)
-        if world_to_medium is not None:
-            row["world_to_medium"] = world_to_medium
-        self.media_rows, self.media_grid = [row], density
-        return 0
-
-    def build(self, device, tile, clusters=True):
-        if not self.materials:
-            self.matte(kd=(0.0, 0.0, 0.0))   # shape-less scenes still gather row 0
-        cat = lambda parts, shape, dt: (np.concatenate(parts) if parts  # noqa: E731
-                                        else np.zeros(shape, dt))
-        pos = cat(self.verts, (0, 3), np.float32)
-        idx = cat(self.tris, (0, 3), np.int32)
-        tri = triangles_from_numpy(pos, idx, cat(self.normals, (0, 3), np.float32),
-                                   cat(self.uvs, (0, 2), np.float32),
-                                   cat(self.has_ns, (0,), bool), cat(self.mat, (0,), np.int32),
-                                   cat(self.light, (0,), np.int32), device)
-        qa = None
-        if self.quads:
-            o2w = np.stack([q[1] for q in self.quads])
-            qa = dict(kind=np.array([q[0] for q in self.quads], np.int64), obj_to_world=o2w,
-                      world_to_obj=np.linalg.inv(o2w),
-                      params=np.stack([q[2] for q in self.quads]),
-                      material_id=np.array([q[3] for q in self.quads], np.int64),
-                      light_id=np.array([q[4] for q in self.quads], np.int64))
-        center, radius = world_bounds(pos, *((qa["params"], qa["obj_to_world"], qa["kind"])
-                                             if qa else ()))
-        return Scene(
-            tri=tri, quad=quadrics_from_numpy(qa, device),
-            clusters=clmod.build_clusters(pos, idx, device) if clusters and len(idx) else None,
-            materials=matmod.build_materials(self.materials, device),
-            lights=lightsmod.build_lights(self.lights, pos, idx,
-                                          None if qa is None else qa["params"],
-                                          self.env_image, self.env_to_world, device=device),
-            textures=self.textures.build(device) if self.textures.rows else None,
-            light_distrib=None,
-            world_center=torch.as_tensor(center, device=device),
-            world_radius=radius, tile=tile,
-            media=(None if self.media_rows is None
-                   else medmod.build_media(self.media_rows, self.media_grid, device)))
-
-
 BLOBS = ("plastic", "metal", "subsurface")
 
 
-def bench_scene(subdivisions=6, device=None, tile=clmod.TILE, blob="plastic"):
+def bench_scene(subdivisions=6, device=None, tile=clmod.TILE, blob="plastic", ply=None):
     """The bench scene on `device` (cuda unless told otherwise). `blob` is
     the blob's material: "plastic" (the bench), "metal" (counterpart of
     mesh_scene(metal_blob=True)) or "subsurface" (SceneBuilder.subsurface
-    at its defaults)."""
+    at its defaults). `ply`: a PLY mesh in place of the blob, scaled to
+    0.6 across its longest side and centred at (0.5, 0.3, -0.5) (as
+    mesh_scene(ply=...))."""
     if blob not in BLOBS:
         raise ValueError(f"blob {blob!r}: expected one of {BLOBS}")
     device = resolve_device(device)
-    b = _Builder()
+    b = SceneBuilder()
     white = b.matte(kd=(0.73, 0.73, 0.73))
     wood = b.textures.image(wood_image(), su=3.0, sv=3.0)
     floor_mat = b.material(kind=matmod.MAT_MATTE, kd=(1.0, 1.0, 1.0), kd_tex=wood,
@@ -269,8 +64,15 @@ def bench_scene(subdivisions=6, device=None, tile=clmod.TILE, blob="plastic"):
                                              roughness=0.08),
                 "metal": lambda: b.metal(roughness=0.05),
                 "subsurface": b.subsurface}[blob]()
-    v, f, vn = bench_blob(subdivisions)
-    b.add_mesh(v + np.array([0.5, 0.35, -0.5], np.float32), f, blob_mat, normals=vn)
+    if ply is None:
+        v, f, vn = bench_blob(subdivisions)
+        v = v + np.array([0.5, 0.35, -0.5], np.float32)
+    else:
+        mesh = read_ply(ply)
+        v, f, vn = mesh["vertices"], mesh["indices"], mesh.get("normals")
+        lo, hi = v.min(0), v.max(0)
+        v = (v - (lo + hi) / 2.0) / max(hi - lo) * 0.6 + np.array([0.5, 0.3, -0.5], np.float32)
+    b.add_mesh(v, f, blob_mat, normals=vn)
     s = 1.0
     b.add_quad([0, 0, 0], [s, 0, 0], [s, 0, -s], [0, 0, -s], floor_mat)
     b.add_quad([0, s, 0], [0, s, -s], [s, s, -s], [s, s, 0], white)
@@ -278,7 +80,7 @@ def bench_scene(subdivisions=6, device=None, tile=clmod.TILE, blob="plastic"):
     e, c, y = 0.25, s / 2, s - 1e-3
     b.area_light_quad([c - e, y, -c + e], [c - e, y, -c - e],
                       [c + e, y, -c - e], [c + e, y, -c + e], radiance=(14.0, 14.0, 14.0))
-    return b.build(device, tile)
+    return b.build(True, device, tile)
 
 
 # fog_scene's default medium: sigma_a, sigma_s, g
@@ -298,7 +100,7 @@ def fog_scene(sigma_a=FOG[0], sigma_s=FOG[1], g=FOG[2], device=None, tile=clmod.
     """Baseline config 4 (counterpart of scenes/volumetric.fog_scene): a
     Cornell-style box with a mirror sphere, filled with a homogeneous
     scattering medium."""
-    b = _Builder()
+    b = SceneBuilder()
     white = b.matte(kd=(0.73, 0.73, 0.73))
     red = b.matte(kd=(0.65, 0.05, 0.05))
     green = b.matte(kd=(0.12, 0.45, 0.15))
@@ -313,14 +115,14 @@ def fog_scene(sigma_a=FOG[0], sigma_s=FOG[1], g=FOG[2], device=None, tile=clmod.
     b.area_light_quad([c - e, y, -c + e], [c - e, y, -c - e],
                       [c + e, y, -c - e], [c + e, y, -c + e], radiance=(22.0, 22.0, 22.0))
     b.set_homogeneous_medium(sigma_a, sigma_s, g)
-    return b.build(resolve_device(device), tile)
+    return b.build(True, resolve_device(device), tile)
 
 
 def smoke_scene(device=None, tile=clmod.TILE):
     """Config 4's grid-density variant (counterpart of
     scenes/volumetric.smoke_scene): a smoke column over a floor and a back
     wall; medium space is the unit cube on the box interior."""
-    b = _Builder()
+    b = SceneBuilder()
     white = b.matte(kd=(0.73, 0.73, 0.73))
     s = 1.0
     b.add_quad([0, 0, 0], [s, 0, 0], [s, 0, -s], [0, 0, -s], white)
@@ -338,7 +140,7 @@ def smoke_scene(device=None, tile=clmod.TILE):
     w2m[2, 2] = -1.0     # world z in [-1, 0] -> medium z in [0, 1]
     b.set_grid_medium(dens, sigma_a=(0.05,) * 3, sigma_s=(0.9,) * 3, g=0.0,
                       world_to_medium=w2m, scale=8.0)
-    return b.build(resolve_device(device), tile)
+    return b.build(True, resolve_device(device), tile)
 
 
 def cornell_sky(n_theta=32, n_phi=64):
@@ -357,7 +159,7 @@ def cornell_spheres(specular=False, light="area", device=None, clusters=True,
     "area" (a ceiling quad), "point", or "env" (no ceiling; the sky of
     cornell_sky). With `clusters` the triangles run through the cluster
     tracer (one cluster), else through the brute-force tracers."""
-    b = _Builder()
+    b = SceneBuilder()
     white = b.matte(kd=(0.73, 0.73, 0.73))
     red = b.matte(kd=(0.65, 0.05, 0.05))
     green = b.matte(kd=(0.12, 0.45, 0.15))
@@ -384,7 +186,7 @@ def cornell_spheres(specular=False, light="area", device=None, clusters=True,
         b.point_light([0.5, 0.85, -0.5], intensity=(1.2, 1.2, 1.2))
     else:
         raise ValueError(f"light {light!r}: expected 'area', 'point' or 'env'")
-    return b.build(resolve_device(device), tile, clusters)
+    return b.build(clusters, resolve_device(device), tile)
 
 
 def appearance_rows(b, fourier_table, marble=True):
@@ -392,8 +194,8 @@ def appearance_rows(b, fourier_table, marble=True):
     (walls, mirror and glass spheres, ceiling light) with seven small
     spheres along the back wall, so that it has a surface of each material
     kind but mix, each texture kind on some channel and a bump-mapped back
-    wall. `b` is this module's _Builder or the JAX package's SceneBuilder:
-    both take these calls; `fourier_table` is that package's Lambertian
+    wall. `b` is api.SceneBuilder or the JAX package's SceneBuilder: both
+    take these calls; `fourier_table` is that package's Lambertian
     table. Without `marble` the plastic sphere's kd is a constant in place
     of the marble texture (the JAX package cannot evaluate marble on more
     than one lane)."""
@@ -457,9 +259,9 @@ def appearance_box(device=None, tile=clmod.TILE, marble=True):
     """The appearance box (appearance_rows) on `device`; its Fourier
     sphere carries the Lambertian table of albedo (0.6, 0.4, 0.3)."""
     device = resolve_device(device)
-    b = appearance_rows(_Builder(), make_lambertian_table((0.6, 0.4, 0.3), device=device),
-                        marble)
-    return b.build(device, tile)
+    b = appearance_rows(SceneBuilder(), make_lambertian_table((0.6, 0.4, 0.3),
+                                                              device=device), marble)
+    return b.build(True, device, tile)
 
 
 def all_kinds_rows(tri_ids):

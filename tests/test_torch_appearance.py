@@ -37,6 +37,7 @@ from tests.test_torch_sss import assert_same_scene
 from tests.test_torch_textures import jit_perlin, port_sss_table  # noqa: F401 (autouse)
 
 from pbrt_tpu_torch import bridge, scenes as tscenes
+from pbrt_tpu_torch.api import SceneBuilder as TSceneBuilder
 from pbrt_tpu_torch.cameras import cameras as tcam
 from pbrt_tpu_torch.core import samplers as tsmp
 from pbrt_tpu_torch.core import transform as ttf
@@ -110,7 +111,7 @@ def test_aniso_taps_match_jax():
     tcam_ = tcam.make_perspective(ttf.look_at_np(pos=pos, look=look, up=up), 50.0, (RES, RES),
                                   "cpu")
     js = textured_quad(SceneBuilder()).build()
-    ts = textured_quad(tscenes._Builder()).build("cpu", 256)
+    ts = textured_quad(TSceneBuilder()).build(True, "cpu", 256)
     with reference_jit():
         img_j = np.asarray(jdriver.render(js, jcam, jcfg, jpath.make_li(jcfg, camera=jcam)))
     img_t = tdriver.render(ts, tcam_, tcfg, tpath.make_li(tcfg, camera=tcam_)).numpy()
@@ -135,7 +136,7 @@ def test_a_mix_row_cannot_render():
     with pytest.raises(KeyError), reference_jit():     # raised while tracing
         jdriver.render(mix_scene(SceneBuilder()).build(), jcornell_camera((RES, RES)), jcfg,
                        jdirect.make_li(jcfg))
-    ts = mix_scene(tscenes._Builder()).build("cpu", 256)
+    ts = mix_scene(TSceneBuilder()).build(True, "cpu", 256)
     for mod in (tdirect, tpath):
         with pytest.raises(ValueError, match="mix"):
             tdriver.render(ts, tscenes.cornell_camera((RES, RES), "cpu"), tcfg,

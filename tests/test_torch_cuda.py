@@ -625,3 +625,51 @@ def test_every_material_and_texture_kind_on_the_card(card):
         bad = ~np.isclose(a, b, rtol=1e-4, atol=1e-5)
         bad = bad.reshape(n, -1).any(-1)
         assert bad.mean() <= 5e-3, (i, bad.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["orthographic", "environment"])
+def test_primary_wavefronts_of_the_other_cameras(card, kind):
+    """Coverage and closest hit on the primary wavefront of an orthographic
+    camera (parallel rays from spread origins) and of an environment camera
+    (every direction from inside the room) on the bench scene at
+    subdivisions 2: bit for bit their plain versions, equal test counts."""
+    from pbrt_tpu_torch.cameras import cameras as tcam
+    from pbrt_tpu_torch.core import samplers as tsmp, transform as ttf
+    from pbrt_tpu_torch.integrate import driver as tdriver
+    from pbrt_tpu_torch.scenes import bench_scene
+    scene = bench_scene(2, "cuda", tile=TILE)
+    res = 64
+    if kind == "orthographic":
+        c2w = ttf.look_at_np([0.5, 0.5, 1.35], [0.5, 0.45, -0.5], [0.0, 1.0, 0.0])
+        c2w[:3, :3] *= 0.6           # the box fills the screen window
+        cam = tcam.make_orthographic(c2w, (res, res), "cuda")
+    else:
+        cam = tcam.make_environment(ttf.look_at_np([0.5, 0.5, -0.2], [0.5, 0.5, -1.0],
+                                                   [0.0, 1.0, 0.0]), (res, res), "cuda")
+    cfg = tdriver.RenderConfig(width=res, height=res, spp=4,
+                               sampler=tsmp.SamplerConfig(kind="zerotwo", spp=4))
+    pid, sid = tdriver.lane_ids(cfg, 0, 4, "cuda")
+    o, d, _, _ = tdriver.camera_rays(cam, cfg, pid.reshape(-1), sid.reshape(-1))
+    n = o.shape[0]
+    cs = scene.clusters
+    _, rays, _ = tcl.prepare(cs, o, d, torch.full((n,), 1e-4, device="cuda"),
+                             torch.full((n,), float("inf"), device="cuda"), TILE)
+    n_live = int((rays[7] > rays[6]).sum())
+    nlt = torch.tensor([-(-n_live // TILE)], dtype=torch.int32, device="cuda")
+    c = [torch.zeros(1, dtype=torch.int64, device="cuda") for _ in range(4)]
+    tn, cb = tkern.coverage(rays, cs.bounds, nlt, cs.n_clusters, TILE, tests_run=c[0],
+                            tests_needed=c[1])
+    ptn, pcb = tkern.coverage_plain(rays, cs.bounds, nlt, cs.n_clusters, TILE,
+                                    tests_run=c[2], tests_needed=c[3])
+    assert torch.equal(tn, ptn) and torch.equal(cb, pcb)
+    assert int(c[0]) == int(c[1]) == int(c[2]) == int(c[3]) > 0
+    corder, tnear, counts, covbits = tcl.tile_cluster_order(cs, rays, TILE)
+    c = [torch.zeros(1, dtype=torch.int64, device="cuda") for _ in range(4)]
+    args = (cs.packed, rays, None, corder, tnear, counts, covbits, TILE)
+    t, slot, bary = tkern.closest(*args, slot_tests=c[0], needed_tests=c[1])
+    for a, b in zip((t, slot, bary), tkern.closest_plain(*args, slot_tests=c[2],
+                                                         needed_tests=c[3])):
+        assert torch.equal(a, b)
+    assert int(c[0]) == int(c[2]) > 0 and int(c[1]) == int(c[3]) > 0
+    assert 0.3 < float((slot >= 0).float().mean()) <= 1.0

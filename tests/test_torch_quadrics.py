@@ -23,7 +23,8 @@ from pbrt_tpu.api import SceneBuilder
 from pbrt_tpu.geom import quadrics as jquad, scene as jscene
 from tests.test_torch_shade import scene_tree
 
-from pbrt_tpu_torch import bridge, scenes as tscenes
+from pbrt_tpu_torch import bridge
+from pbrt_tpu_torch.api import SceneBuilder as TSceneBuilder
 from pbrt_tpu_torch.geom import quadrics as tquad, scene as tscene
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -100,8 +101,7 @@ def test_native_builder_equals_the_jax_builder(scenes):
     """The port's scene builder makes the JAX builder's quadric pool and
     world bounds, all six kinds present."""
     js, ts = scenes
-    native = tscenes._Builder()
-    native = quadric_scene(native).build("cpu", 256)
+    native = quadric_scene(TSceneBuilder()).build(True, "cpu", 256)
     assert native.quad.kinds_present == ts.quad.kinds_present == (0, 1, 2, 3, 4, 5)
     for f in ("kind", "obj_to_world", "world_to_obj", "params", "material_id", "light_id"):
         assert torch.equal(getattr(native.quad, f), getattr(ts.quad, f)), f

@@ -31,6 +31,7 @@ from tests.test_torch_shade import scene_tree
 from tests.test_torch_media import one_torch_thread  # noqa: F401 (autouse)
 
 from pbrt_tpu_torch import bridge, scenes as tscenes
+from pbrt_tpu_torch.api import SceneBuilder as TSceneBuilder
 from pbrt_tpu_torch.cameras import cameras as tcam
 from pbrt_tpu_torch.core import samplers as tsmp, transform as ttf
 from pbrt_tpu_torch.integrate import driver as tdriver, path as tpath, volpath as tvolpath
@@ -80,10 +81,10 @@ def test_vacuum_medium_equals_path():
 
 def test_scattering_furnace():
     """Albedo-1 medium in a uniform environment, no shapes: L = Le."""
-    b = tscenes._Builder()
+    b = TSceneBuilder()
     b.infinite_light(radiance=1.0)
     b.set_homogeneous_medium(sigma_a=(0.0,) * 3, sigma_s=(0.4,) * 3, g=0.0)
-    scene = b.build("cpu", 256)
+    scene = b.build(True, "cpu", 256)
     assert scene.tri.count == 0 and scene.clusters is None and scene.world_radius == 1.0
     cam = tcam.make_perspective(ttf.look_at_np([0., 0., 0.], [0., 0., -1.], [0., 1., 0.]),
                                 60.0, (12, 12), "cpu")
@@ -98,13 +99,13 @@ def test_two_media_interface():
     sigma, radius = 0.4, 0.8
 
     def build(inside):
-        b = tscenes._Builder()
+        b = TSceneBuilder()
         glass = b.glass(kr=0.0, kt=1.0, eta=1.0)
         b.medium_interface(glass, inside=inside, outside=0)
         b.add_sphere((0.0, 0.0, 0.0), radius, glass)
         b.set_homogeneous_medium(sigma_a=(sigma,) * 3, sigma_s=(0.0,) * 3)
         b.infinite_light(radiance=1.0)
-        return b.build("cpu", 256)
+        return b.build(True, "cpu", 256)
 
     cam = tcam.make_perspective(ttf.look_at_np([0., 0., -3.], [0., 0., 0.], [0., 1., 0.]),
                                 35.0, (32, 32), "cpu")

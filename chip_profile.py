@@ -3,7 +3,7 @@
 
     python3 chip_profile.py [path|direct|ao|cornell|volpath|volpath_bench_fog|
                              volpath_smoke|whitted|grad|bdpt|sppm|mlt|spectral|
-                             metal|sss|appearance ...]
+                             metal|sss|appearance|instances|bvh|precull ...]
 
 Renders the bench frames of chip_smoke.py (512×512, 1 spp, zerotwo; path
 at depth 5 with compact_from=1, direct lighting with strategy "one",
@@ -23,7 +23,11 @@ in the spectral mode, path at depth 5, 256×256, 16 spp, 12 bins), the
 frames of chip_smoke.py phases 19–22, or `metal` and `sss` (the bench
 path frame with a metal or a subsurface blob) or `appearance` (the
 appearance box, path at depth 5 with compact_from=1, 256×256 at 16 spp in
-one wavefront), the frames of phases 24–25, through pbrt_tpu_torch: for each,
+one wavefront), the frames of phases 24–25, or `instances` (the instance
+field, scenes.instance_field, path at depth 5 with compact_from=1,
+512×512, 1 spp, zerotwo: phase 30's frame) or `bvh` (the bench path frame
+with geom/bvh.py's BVH in place of the cluster set: the plain-PyTorch
+traversal), through pbrt_tpu_torch: for each,
 one warm-up, three frames timed with the host clock around
 torch.cuda.synchronize(), then one frame under torch.profiler. Prints the
 frame time, the device-busy share (sum of GPU kernel time over the
@@ -35,6 +39,13 @@ step (dist.sharding's, one rank) of the bench path frame with the white
 walls' and the blob's kd and the light's emit perturbed; three steps
 timed in their forward and backward halves, then each half under its own
 profile, with the same figures for each.
+`precull` times the instance pass against the instance count: the
+field's primary trace (scene.intersect on its 262,144 lanes) and the
+sphere set's pre-cull and compaction (instances.pairs, its window ending
+at the room's hit) with that set tiled to 64, 1,024, 4,096 and 16,384
+instances; every copy past the first 64 sits below the floor, where no
+lane's window reaches, so the pairs stay the field's and only the dense
+(instances × lanes) pre-cull grows.
 Needs a GPU; prints the card's name and power limit.
 """
 import subprocess
@@ -55,7 +66,7 @@ def main():
     from pbrt_tpu_torch.kernels import cluster_cuda as kern
     from pbrt_tpu_torch.scenes import (CORNELL_RES, CORNELL_SPP, CORNELL_SPP_BATCH,
                                        appearance_box, bench_camera, bench_fog_scene,
-                                       bench_scene,
+                                       bench_scene, instance_field,
                                        cornell_camera, cornell_spheres, fog_scene,
                                        smoke_scene, volumetric_camera)
 
@@ -78,6 +89,18 @@ def main():
             bli = path.make_li(cfg, camera=cam, compact_from=1, return_stats=True)
             frames[name] = (lambda s=bscene, li=bli: driver.render_lanes(s, cam, cfg, li, pid,
                                                                          sid)[0])
+    if "instances" in names:
+        fscene = instance_field(device=dev)
+        fli = path.make_li(cfg, camera=cam, compact_from=1, return_stats=True)
+        frames["instances"] = lambda: driver.render(fscene, cam, cfg, fli)
+    if "bvh" in names:
+        import dataclasses
+        from pbrt_tpu_torch.geom.bvh import build_bvh
+        vscene = bench_scene(6, dev)
+        vscene = dataclasses.replace(vscene, clusters=None, bvh=build_bvh(
+            vscene.tri.positions.cpu().numpy(), vscene.tri.indices.cpu().numpy(), device=dev))
+        vli = path.make_li(cfg, camera=cam, compact_from=1, return_stats=True)
+        frames["bvh"] = lambda: driver.render(vscene, cam, cfg, vli)
     if "appearance" in names:
         ascene = appearance_box(dev)
         acam = cornell_camera((256, 256), dev)
@@ -144,6 +167,8 @@ def main():
     for name in names:
         if name == "grad":
             profile_grad(torch, dev)
+        elif name == "precull":
+            precull_sweep(torch, instance_field(device=dev), cam, cfg, pid, sid)
         else:
             profile_frame(torch, name, frames[name])
 
@@ -196,6 +221,49 @@ def profile_grad(torch, dev):
         wall_b = (time.perf_counter() - t0) * 1e3
     report(torch, "grad_backward", prof_b, wall_b)
     print(f"[grad] peak_memory_bytes={torch.cuda.max_memory_allocated()}", flush=True)
+
+
+def precull_sweep(torch, field, cam, cfg, pid, sid, counts=(64, 1024, 4096, 16384)):
+    """The field's primary trace and its sphere set's pre-cull against the
+    instance count (the module docstring's `precull`)."""
+    import dataclasses
+    from pbrt_tpu_torch.geom import instances as instmod, scene as scenemod
+    from pbrt_tpu_torch.integrate import driver
+
+    o, d, _, _ = driver.camera_rays(cam, cfg, pid.reshape(-1), sid.reshape(-1))
+    room = scenemod.intersect(dataclasses.replace(field, instances=None), o, d)
+    t_min = torch.full_like(room.t, scenemod.RAY_EPS)
+    t_max = torch.where(room.valid, room.t, float("inf"))
+    spheres = field.instances[0]
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(FRAMES):
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms.append(round((time.perf_counter() - t0) * 1e3, 3))
+        return out, ms
+
+    for n in counts:
+        k = n // spheres.count
+        below = torch.zeros(k * spheres.count, 3, device=o.device)
+        below[:, 1] = -2.0 * torch.arange(k, device=o.device).repeat_interleave(spheres.count)
+        cols = {c: getattr(spheres, c).repeat(k, *(1,) * (getattr(spheres, c).dim() - 1))
+                for c, _ in instmod.COLUMNS}
+        for c in ("t0", "t1", "bmin", "bmax"):
+            cols[c] = cols[c] + below
+        tiled = dataclasses.replace(spheres, **cols)
+        scene = dataclasses.replace(field, instances=(tiled,) + field.instances[1:])
+        torch.cuda.reset_peak_memory_stats()
+        (inst, _), pre_ms = timed(lambda: instmod.pairs(tiled, o, d, t_min, t_max))
+        hit, trace_ms = timed(lambda: scenemod.intersect(scene, o, d))
+        print(f"[precull] instances={n} lanes={o.shape[0]} pairs={inst.numel()} "
+              f"precull_ms={pre_ms} primary_trace_ms={trace_ms} "
+              f"hits={int(hit.valid.sum())} "
+              f"peak_gib={torch.cuda.max_memory_allocated() / 2**30:.3f}", flush=True)
 
 
 def profile_frame(torch, name, frame):

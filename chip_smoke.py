@@ -146,6 +146,23 @@ Phases, each printing one line with its elapsed seconds:
   29. the thin-lens mitchell path render at 16×16 on the card against the
      CPU (the pixel check; pixels whose filter weights sum to 0 or less
      held apart at rtol 1e-4);
+  30. the instance field (scenes.instance_field: the bench room, 64
+     instances of one 1,280-triangle Loop-subdivided prototype, 16 of them
+     moving over the shutter, an emissive instance), path at depth 5, 512×512,
+     1 spp, zerotwo, compact_from=1: every wavefront of the primary and the
+     first fused trace (the scene pool's and each prototype's object-space
+     pair wavefront) held to its plain version on 32 tiles; the tracer
+     launches a frame those the recorded frame sent (the scene pool's 6/6/0,
+     at most 6 of each more a prototype); one warm-up and two timed frames,
+     ms, rays, Mrays/s, one profiled frame's GPU launches, peak memory,
+     0 NaN; the field at 16×16 (n_side 3, 4 spp) against the CPU;
+  31. the bench scene through geom/bvh.py in place of its clusters: the
+     primary and one fused bounce wavefront at 512×512 against the cluster
+     kernels (hits, triangles, t at rtol 1e-3), steps and ms; the kd-tree of
+     bench_blob(4): build seconds, its primary hits against the brute force;
+  32. config 1's 64×64 direct render (point and area light, random
+     sampler, 4 spp) on the card against the port's oracle.render_direct
+     (the pixel check);
   7. the probe kernels (kernels/probes.py): the compaction probe at tiles
      256 and 1,024 against its plain version (val 0 and -0.0 on some
      lanes), its device time (torch.profiler) beside an empty kernel's;
@@ -170,6 +187,13 @@ T0 = time.perf_counter()
 H100_F32_FLOPS = 67e12        # non-tensor-core float32 peak, H100 SXM at 700 W
 H100_HBM_BYTES = 3.35e12      # HBM3 bytes/s, H100 SXM
 PLAIN_TILES = 32              # tiles the plain versions are run on
+# the instance field's tracer launches a frame: 6 traces (the primary and
+# five fused bounces at depth 5), each one closest launch of the scene pool
+# and one (intersect_flagged, closest and shadow pairs together) for each
+# prototype whose pre-cull finds pairs; both prototypes find pairs in every
+# trace of the 512×512 field
+FIELD_PER_SET = {0: 6, 1: 6}
+FIELD_LAUNCHES = {"coverage": 18, "closest": 18, "occluded": 0}
 # The slot tests that the earlier tracers (one block per tile, every slot
 # of a round for every joining lane) ran on the same wavefronts: counts
 # that depend on the data alone, the gate of phases 4 and 4b
@@ -397,21 +421,39 @@ def sent_wavefronts(clmod, run):
     the fused intersect_occluded; flag None or the shadow lanes' marks) and
     ("occluded", (o, d, t_min, t_max)) for each any-hit query. The
     wavefronts an integrator really traces."""
+    return [(kind, w) for kind, _, w in sent_with_sets(clmod, run)]
+
+
+def sent_with_sets(clmod, run, instmod=None):
+    """As sent_wavefronts, each wavefront with the cluster set it was traced
+    through (the scene's, or an instanced prototype's): [(kind, cs, w)].
+    With `instmod` (geom.instances) each instance set's pre-cull is
+    recorded in its place too, as ("pairs", iset, number of pairs)."""
     real_trace, real_occ, sent = clmod._trace, clmod.occluded, []
+    real_pairs = instmod.pairs if instmod is not None else None
 
     def trace(cs, o, d, t_min, t_max, tile, flag=None):
-        sent.append(("closest", (o, d, t_min, t_max, flag)))
+        sent.append(("closest", cs, (o, d, t_min, t_max, flag)))
         return real_trace(cs, o, d, t_min, t_max, tile, flag)
 
     def occluded(cs, o, d, t_min, t_max, tile):
-        sent.append(("occluded", (o, d, t_min, t_max)))
+        sent.append(("occluded", cs, (o, d, t_min, t_max)))
         return real_occ(cs, o, d, t_min, t_max, tile)
 
+    def pairs(iset, *rays):
+        out = real_pairs(iset, *rays)
+        sent.append(("pairs", iset, int(out[0].numel())))
+        return out
+
     clmod._trace, clmod.occluded = trace, occluded
+    if instmod is not None:
+        instmod.pairs = pairs
     try:
         run()
     finally:
         clmod._trace, clmod.occluded = real_trace, real_occ
+        if instmod is not None:
+            instmod.pairs = real_pairs
     return sent
 
 
@@ -1555,6 +1597,221 @@ def frontend_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line, res=
     return by_path, frames_by
 
 
+def last_slice_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line, bench,
+                      res=512):
+    """Phases 30–32: instances, the other accelerators and the CPU oracle.
+    30: the instance field (scenes.instance_field: 64 instances of a
+    1,280-triangle prototype, 16 moving over the shutter, and an emissive
+    instance) at 512×512, path at depth 5, 1 spp, zerotwo, compact_from=1:
+    every wavefront of the primary and the first fused trace — the scene
+    pool's and each prototype's object-space pair wavefront — held to the
+    plain versions on PLAIN_TILES tiles spread over it, bit for bit with
+    equal test counts; both prototypes carry cluster sets, each set whose
+    pre-cull finds pairs in a trace launches once in it, and the tracer
+    launches are FIELD_PER_SET and FIELD_LAUNCHES; one warm-up, two timed
+    frames, one profiled frame's GPU launches, peak memory, 0 NaN; then the field at 16×16 (n_side 3, 4
+    spp) on the card against the plain versions on the CPU. 31: the bench
+    scene through geom/bvh.py in place of its clusters (the primary and one
+    fused bounce wavefront at 512×512, their hits against the cluster
+    kernels' within tests/test_torch_cluster.py's tolerances, the steps and
+    ms), and the kd-tree of bench_blob(4) (its build seconds, its primary
+    hits against the brute-force tracer on the card). 32: config 1's 64×64
+    direct render (point and area light, random sampler, 4 spp) on the card
+    against the port's oracle.render_direct: the pixel check. Returns
+    ({path: kernel launches}, {path: frames})."""
+    import numpy as np
+    import torch
+    from pbrt_tpu_torch import scenes as scenes_mod
+    from pbrt_tpu_torch.geom import bvh as bvhmod, instances as instmod, kdtree as kdmod
+    from pbrt_tpu_torch.geom import meshio
+    from pbrt_tpu_torch.geom import scene as scenemod, triangle as trimod
+    from pbrt_tpu_torch.geom.types import triangles_from_numpy
+    from pbrt_tpu_torch.integrate import direct, path
+    from pbrt_tpu_torch.oracle import cpu_reference as oracle
+    by_path, frames_by = {}, {}
+    t_all = time.perf_counter()
+
+    # 30. the instance field
+    t0 = time.perf_counter()
+    frames = 2
+    field = scenes_mod.instance_field(device=dev, tile=tile)
+    cam = scenes_mod.bench_camera((res, res), dev)
+    cfg = driver.RenderConfig(width=res, height=res, spp=1, max_depth=5,
+                              sampler=smp.SamplerConfig(kind="zerotwo", spp=1))
+    li = path.make_li(cfg, camera=cam, compact_from=1, return_stats=True)
+
+    def render():
+        return driver.render(field, cam, cfg, li)
+
+    log("instance_field_scene", triangles=field.tri.count,
+        instances=[s.count for s in field.instances],
+        prototype_triangles=[s.proto.count for s in field.instances],
+        prototype_clusters=[s.clusters.n_clusters for s in field.instances],
+        animated=[s.animated for s in field.instances],
+        stored_triangles=field.tri.count + sum(s.proto.count for s in field.instances),
+        instanced_triangles=sum(s.count * s.proto.count for s in field.instances),
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    if any(s.clusters is None for s in field.instances):
+        fail("instance_field: a prototype has no cluster set, so its pairs would miss the "
+             "kernels")
+    sent = sent_with_sets(clmod, render, instmod)
+    # a trace is the scene pool's launch, then each set's pre-cull and, where
+    # it found pairs, one launch through the set's prototype
+    traces = []
+    for kind, cs, w in sent:
+        if kind != "pairs" and cs is field.clusters:
+            traces.append([])
+        traces[-1].append((kind, cs, w))
+    launched = [(k, cs, w) for k, cs, w in sent if k != "pairs"]
+    recorded = {"coverage": len(launched),
+                "closest": sum(k == "closest" for k, _, _ in launched),
+                "occluded": sum(k == "occluded" for k, _, _ in launched)}
+    per_set = {i: sum(cs is s.clusters for _, cs, _ in launched)
+               for i, s in enumerate(field.instances)}
+    found = [[next((w for k, c, w in t if k == "pairs" and c is s), None)
+              for s in field.instances] for t in traces]
+    missed = [(ti, i) for ti, t in enumerate(traces) for i, s in enumerate(field.instances)
+              if found[ti][i] is None or sum(k != "pairs" and c is s.clusters
+                                             for k, c, _ in t) != (found[ti][i] > 0)]
+    if len(traces) != 6 or any(t[0][0] != "closest" for t in traces) or missed \
+            or per_set != FIELD_PER_SET or recorded != FIELD_LAUNCHES:
+        fail(f"instance_field: traces {[[k for k, _, _ in t] for t in traces]}, pairs "
+             f"{found}, prototype launches {per_set}, launches {recorded}; expected 6 "
+             f"traces, one launch a set with pairs in each (missed: {missed}), "
+             f"{FIELD_PER_SET} and {FIELD_LAUNCHES}")
+    held = []
+    for ti, trace_ in enumerate(traces[:2]):
+        for wi, (kind, cs, w) in enumerate(trace_):
+            if kind == "pairs":
+                continue
+            who = "scene" if cs is field.clusters else "proto" + str(next(
+                i for i, s in enumerate(field.instances) if s.clusters is cs))
+            held += check_sent(kern, clmod, cs, [(kind, w)], tile,
+                               f"instance_field_t{ti}_{who}", PLAIN_TILES)
+    pairs = [(k, int(w[0].shape[0])) for t in traces for k, cs, w in t
+             if k != "pairs" and cs is not field.clusters]
+    del sent, traces, launched
+    log("instance_field_wavefronts", held=held, prototype_wavefronts=pairs,
+        pairs_by_trace=found,
+        launches_by_prototype=per_set, compared_tiles_each=PLAIN_TILES,
+        all_compared_equal=True, seconds=f"{time.perf_counter() - t0:.2f}")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    (img, stats), ms, launches = timed_frames(render, kernels, frames)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_frame = {k: v // frames for k, v in launches.items()}
+    rays = float(stats["rays_traced"])
+    n_nan = int(torch.isnan(img).sum())
+    by_path["instance_field"], frames_by["instance_field"] = launches, frames
+    log("instance_field", resolution=f"{res}x{res}", spp=1, depth=5,
+        frame_ms=[round(t, 3) for t in ms], rays_per_frame=rays,
+        mrays_per_s=f"{rays * frames / sum(ms) / 1e3:.3f}",
+        gpu_launches_per_frame=gpu_launches(render), launches_per_frame=per_frame,
+        peak_memory_gib=f"{peak:.3f}", image_mean=f"{float(img.mean()):.6f}", nan=n_nan,
+        card=f"'{smi_line}'", seconds=f"{time.perf_counter() - t0:.2f}")
+    if n_nan or not bool(torch.isfinite(img).all()) or tuple(img.shape) != (res, res, 3):
+        fail("instance_field: image is not finite")
+    if per_frame != FIELD_LAUNCHES or any(v % frames for v in launches.values()):
+        fail(f"instance_field: launches over {frames} frames {launches}, expected "
+             f"{FIELD_LAUNCHES} a frame")
+    del field, img
+    check_small(driver, smp, dev, "instance_field_16x16",
+                lambda d: scenes_mod.instance_field(n_side=3, device=d, tile=tile),
+                lambda c: path.make_li(c), 16, 4, scenes_mod.bench_camera)
+
+    # 31. the BVH on the bench scene; the kd-tree on bench_blob(4)
+    t0 = time.perf_counter()
+    pos, idx = bench.tri.positions.cpu().numpy(), bench.tri.indices.cpu().numpy()
+    bvh = bvhmod.build_bvh(pos, idx, device=dev)
+    build_s = time.perf_counter() - t0
+    pid, sid = driver.lane_ids(cfg, 0, 1, dev)
+    o, d, _, _ = driver.camera_rays(cam, cfg, pid.reshape(-1), sid.reshape(-1))
+    n = o.shape[0]
+    t_min = torch.full((n,), 1e-4, device=dev)
+    t_max = torch.full((n,), float("inf"), device=dev)
+    ob, db, tminb, tmaxb, _ = bounce_wavefront(bench, o, d, scenemod.intersect(bench, o, d))
+
+    def agree(tag, bvh_res, ref, steps, ms, extra):
+        h, t, i = (a for a in bvh_res[:3])
+        rh, rt, ri = ref[:3]
+        both = h & rh
+        hit_agree = float((h == rh).float().mean())
+        tri_agree = float((i[both] == ri[both]).float().mean())
+        t_ok = bool(torch.allclose(t[both], rt[both], rtol=1e-3))
+        log(tag, lanes=int(h.shape[0]), steps=steps, ms=f"{ms:.3f}",
+            hit_agreement=f"{hit_agree:.6f}", triangle_agreement=f"{tri_agree:.6f}",
+            t_within_rtol=t_ok, hit_share=f"{float(h.float().mean()):.4f}", **extra)
+        if hit_agree <= 0.995 or tri_agree <= 0.99 or not t_ok:
+            fail(f"{tag}: the BVH's hits disagree with the cluster kernels'")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    (res_p, steps), ms_p = timed(lambda: bvhmod.traverse(bvh, bench.tri, o, d, t_min, t_max,
+                                                         False, True))
+    agree("bvh_primary", res_p, clmod.intersect(bench.clusters, o, d, t_min, t_max, tile),
+          steps, ms_p, dict(nodes=bvh.n_nodes, build_seconds=f"{build_s:.3f}"))
+    ext = (ob[:n], db[:n], tminb[:n], tmaxb[:n])
+    sh = (ob[n:], db[n:], tminb[n:], tmaxb[n:])
+    (res_b, steps_b), ms_b = timed(lambda: bvhmod.traverse(bvh, bench.tri, *ext, False, True))
+    (occ, steps_a), ms_a = timed(lambda: bvhmod.traverse(bvh, bench.tri, *sh, True, True))
+    ref_b, ref_occ = clmod.intersect_occluded(bench.clusters, *ext, *sh, tile)
+    occ_agree = float((occ[0] == ref_occ).float().mean())
+    agree("bvh_bounce", res_b, ref_b, steps_b, ms_b,
+          dict(any_hit_steps=steps_a, any_hit_ms=f"{ms_a:.3f}",
+               occluded_agreement=f"{occ_agree:.6f}"))
+    if occ_agree <= 0.995:
+        fail("bvh_bounce: the BVH's any hits disagree with the cluster kernels'")
+    del bvh, res_p, res_b, occ
+    t0 = time.perf_counter()
+    v, f, vn = meshio.bench_blob(4)
+    v = v + np.array([0.5, 0.35, -0.5], np.float32)
+    kd = kdmod.build_kdtree(v, f, device=dev)
+    kd_build = time.perf_counter() - t0
+    tri = triangles_from_numpy(v, f, vn, np.zeros((len(v), 2), np.float32),
+                               np.ones(len(f), bool), np.zeros(len(f)), np.full(len(f), -1), dev)
+    (kres, ksteps), kms = timed(lambda: kdmod.traverse_closest(kd, tri, o, d, t_min, t_max,
+                                                               True))
+    bres, bms = timed(lambda: trimod.intersect_brute(tri, o, d, t_min, t_max))
+    kh, kt, ki = kres[:3]
+    bh, bt, bi = bres[:3]
+    both = kh & bh
+    mism = dict(hit_mismatches=int((kh != bh).sum()),
+                triangle_mismatches=int((ki[both] != bi[both]).sum()),
+                t_mismatches=int((kt[both] != bt[both]).sum()))
+    log("kdtree_blob4", triangles=len(f), nodes=int(kd.axis.shape[0]),
+        build_seconds=f"{kd_build:.3f}", lanes=n, steps=ksteps, ms=f"{kms:.3f}",
+        brute_ms=f"{bms:.3f}", hit_share=f"{float(kh.float().mean()):.4f}", **mism)
+    if (kh != bh).float().mean() >= 0.005 or (ki[both] != bi[both]).float().mean() >= 0.01:
+        fail("kdtree_blob4: the kd-tree's hits disagree with the brute-force tracer's")
+    del kd, tri
+
+    # 32. config 1's direct render against the port's CPU oracle
+    res1, spp1 = 64, 4
+    c1 = driver.RenderConfig(width=res1, height=res1, spp=spp1,
+                             sampler=smp.SamplerConfig(kind="random", spp=spp1, seed=0))
+    for light in ("point", "area"):
+        t0 = time.perf_counter()
+        box = scenes_mod.cornell_spheres(light=light, device=dev, tile=tile)
+        bcam = scenes_mod.cornell_camera((res1, res1), dev)
+        img = driver.render(box, bcam, c1, direct.make_li(c1)).cpu().numpy()
+        with np.errstate(invalid="ignore"):     # the oracle's 0 · inf on rays that miss
+            ref = oracle.render_direct(box, bcam, res1, res1, spp1, seed=0)
+        frac, mdiff, ok = pixel_check(img, ref)
+        log(f"oracle_cornell_{light}", resolution=f"{res1}x{res1}", spp=spp1,
+            pixels_within_tol=f"{frac:.4f}", mean_diff=f"{mdiff:.3e}",
+            mean=f"{img.mean():.6f}", seconds=f"{time.perf_counter() - t0:.2f}", passed=ok)
+        if not ok or not np.isfinite(img).all():
+            fail(f"oracle_cornell_{light}: the render on the card disagrees with the oracle")
+    log("last_slice_phases", seconds=f"{time.perf_counter() - t_all:.2f}")
+    return by_path, frames_by
+
+
 def free_port():
     import socket
     with socket.socket() as s:
@@ -1894,7 +2151,9 @@ def main():
                  grad_phases(kern, clmod, driver, smp, dev, tile, kernels),
                  integrator_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line),
                  appearance_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line),
-                 frontend_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line)):
+                 frontend_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line),
+                 last_slice_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line,
+                                   scene)):
         by_path.update(part[0])
         frames_by.update(part[1])
     check_lights(scenes_mod, lightsmod, distrib, dev)

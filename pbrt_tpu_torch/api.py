@@ -2,8 +2,9 @@
 pbrt_tpu/api.py, the same methods and argument names). It gathers meshes,
 quadrics, materials, textures, media and lights on the host in numpy and
 `build` makes the port's Scene on a device (cuda unless told otherwise),
-with the cluster set of its triangles when `bvh` (or `use_bvh`) is set.
-Instances are not ported yet: their two methods raise."""
+with the cluster set of its triangles, and of each instanced prototype,
+when `bvh` (or `use_bvh`) is set. As in the JAX package, `build` makes no
+BVHArrays: geom/bvh.py builds them for a caller that asks."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,6 +14,7 @@ import torch
 
 from . import resolve_device
 from .geom import cluster as clmod
+from .geom import instances as instmod
 from .geom.scene import Scene, world_bounds
 from .geom.types import (QUAD_CONE, QUAD_CYLINDER, QUAD_DISK, QUAD_HYPERBOLOID,
                          QUAD_PARABOLOID, QUAD_SPHERE, quadrics_from_numpy,
@@ -32,6 +34,8 @@ class SceneBuilder:
         self._env_image = self._env_to_world = None
         self._media_rows, self._media_grid = None, None
         self._textures = None
+        self._protos = []          # instanced prototypes: (v, idx, normals, uvs, has_ns)
+        self._instances = []       # (proto, material, T0, T1 or None, light id)
         self.use_bvh = False
         self.spatial_light_distrib = False
 
@@ -164,10 +168,38 @@ class SceneBuilder:
 
     # ---- instancing ------------------------------------------------------
     def instanced_prototype(self, vertices, indices, normals=None, uvs=None):
-        raise NotImplementedError("instances are not ported yet")
+        """A mesh stored once and shared by instances (TransformedPrimitive,
+        primitive.rs:105-177). Returns the prototype id."""
+        v = np.asarray(vertices, np.float32).reshape(-1, 3)
+        idx = np.asarray(indices, np.int32).reshape(-1, 3)
+        n = np.zeros_like(v) if normals is None else np.asarray(normals, np.float32).reshape(-1, 3)
+        uv = np.zeros((len(v), 2), np.float32) if uvs is None \
+            else np.asarray(uvs, np.float32).reshape(-1, 2)
+        self._protos.append((v, idx, n, uv, np.full(len(idx), normals is not None)))
+        return len(self._protos) - 1
 
     def add_instance(self, proto, material, transform, transform1=None, emit=None):
-        raise NotImplementedError("instances are not ported yet")
+        """Prototype `proto` under the 4x4 object-to-world `transform` at
+        shutter open; `transform1` (optional) at shutter close: rigid motion
+        blur by per-ray quaternion slerp (transform.rs:2010). `emit` (RGB
+        radiance) makes the instance an area light: its world-space
+        triangles go into the light table as corner rows (the reference's
+        TransformedPrimitive has no area light, primitive.rs:161-163; the
+        JAX package's builder adds this). An emissive instance cannot move."""
+        light_id = -1
+        if emit is not None:
+            if transform1 is not None and not np.allclose(np.asarray(transform1),
+                                                          np.asarray(transform)):
+                raise ValueError("emissive instances cannot be animated")
+            v, idx = self._protos[int(proto)][:2]
+            m = np.asarray(transform, np.float64)
+            pw = v @ m[:3, :3].T + m[:3, 3]
+            light_id = self._light(kind=lightsmod.LIGHT_AREA_TRI, L=emit,
+                                   tris=np.concatenate([pw[idx[:, c]] for c in range(3)], 1))
+        self._instances.append((int(proto), int(material), np.asarray(transform, np.float64),
+                                None if transform1 is None
+                                else np.asarray(transform1, np.float64), light_id))
+        return len(self._instances) - 1
 
     # ---- media ---------------------------------------------------------
     def medium_interface(self, material, inside=-1, outside=0):
@@ -262,9 +294,10 @@ class SceneBuilder:
                       params=np.stack([q[2] for q in self._quads]),
                       material_id=np.array([q[3] for q in self._quads], np.int64),
                       light_id=np.array([q[4] for q in self._quads], np.int64))
-        center, radius = world_bounds(pos, *((qa["params"], qa["obj_to_world"], qa["kind"])
-                                             if qa else ()))
         use_bvh = self.use_bvh if bvh is None else bvh
+        isets = self._instance_sets(device, use_bvh)
+        center, radius = world_bounds(pos, *((qa["params"], qa["obj_to_world"], qa["kind"])
+                                             if qa else (None,) * 3), instances=isets)
         scene = Scene(
             tri=tri, quad=quadrics_from_numpy(qa, device),
             clusters=clmod.build_clusters(pos, idx, device) if use_bvh and len(idx) else None,
@@ -277,9 +310,26 @@ class SceneBuilder:
             world_center=torch.as_tensor(center, device=device),
             world_radius=radius, tile=tile,
             media=(None if self._media_rows is None
-                   else medmod.build_media(self._media_rows, self._media_grid, device)))
+                   else medmod.build_media(self._media_rows, self._media_grid, device)),
+            instances=isets)
         if self.spatial_light_distrib:
             from .lights import distrib
             scene = dataclasses.replace(scene, light_distrib=distrib.build_spatial(
                 scene, scene.lights))
         return scene
+
+    def _instance_sets(self, device, clusters):
+        """One InstanceSet per prototype that has instances, or None."""
+        sets = []
+        for pid, (v, idx, n, uv, has_ns) in enumerate(self._protos):
+            rows = [r for r in self._instances if r[0] == pid]
+            if not rows:
+                continue
+            t = len(idx)
+            proto = triangles_from_numpy(v, idx, n, uv, has_ns, np.zeros(t, np.int32),
+                                         np.full(t, -1, np.int32), device)
+            sets.append(instmod.build_instances(
+                proto, [r[2] for r in rows], [r[1] for r in rows],
+                transforms1=[r[2] if r[3] is None else r[3] for r in rows],
+                light_ids=[r[4] for r in rows], clusters=clusters))
+        return tuple(sets) or None

@@ -19,6 +19,8 @@ from .cameras.realistic import RealisticCamera
 from .core import transform as tf
 from .core.samplers import SamplerConfig
 from .geom import cluster as clmod
+from .geom import instances as instmod
+from .geom.bvh import bvh_from_numpy
 from .geom.scene import Scene
 from .geom.types import quadrics_from_numpy, triangles_from_numpy
 from .integrate.bdpt import BDPTConfig
@@ -45,32 +47,51 @@ def _clusters(c, device):
         world_min=c["world_min"], world_max=c["world_max"]), device)
 
 
+def _triangles(t, device):
+    return triangles_from_numpy(t["positions"], t["indices"], t["normals"], t["uvs"],
+                                t["has_normals"], t["material_id"], t["light_id"], device)
+
+
+def _instance_set(s, device, clusters):
+    """One instance set: "proto" (the prototype's triangle arrays), the
+    InstanceSet columns (instances.COLUMNS) and "animated"; with
+    `clusters` the prototype's cluster set is built, as api.SceneBuilder
+    builds it for a scene with clusters."""
+    p = s["proto"]
+    cs = clmod.build_clusters(p["positions"], p["indices"], device) \
+        if clusters and len(p["indices"]) else None
+    return instmod.instances_from_numpy(_triangles(p, device), s, device, cs)
+
+
 def scene_from_numpy(tree, device=None, tile=clmod.TILE):
     """tree: dict with "tri", "quad" (or None when "quad_count" is 0),
     "clusters" (or None), "materials", "lights", "textures" (or None),
     "light_distrib" (or None) and "media" (or None) sub-dicts of numpy
-    arrays, plus "world_center", "world_radius", "quad_count" and
-    "instance_count". Instances are not ported: a scene with any is
-    refused, and so is a tree that does not state both counts and its
-    media, or that states quadrics and leaves out their arrays (they would
-    go missing without a word)."""
+    arrays, "instances" (a list of instance-set dicts, _instance_set; None
+    when "instance_count" is 0; the prototypes get cluster sets when the
+    scene has clusters) and "bvh" (the BVHArrays columns, or None),
+    plus "world_center", "world_radius", "quad_count" and "instance_count"
+    (the number of instance sets). A tree that does not state both counts
+    and its media is refused, and so is one that states quadrics or
+    instance sets and carries other arrays (they would go missing without a
+    word)."""
     device = resolve_device(device)
-    t = tree["tri"]
     missing = [k for k in ("quad_count", "instance_count", "media") if k not in tree]
     if missing:
         raise NotImplementedError(f"the scene tree does not state {missing}: a scene "
                                   "must show its quadrics, its media (None or arrays) "
-                                  "and that it has no instances")
-    if int(tree["instance_count"]):
-        raise NotImplementedError("instances are not ported yet")
+                                  "and its instance sets")
+    sets = tree.get("instances") or []
+    if int(tree["instance_count"]) != len(sets):
+        raise NotImplementedError(f"the tree states {int(tree['instance_count'])} instance "
+                                  f"sets and carries {len(sets)}")
     quad = tree.get("quad")
     if int(tree["quad_count"]) != (0 if quad is None else len(quad["kind"])):
         raise NotImplementedError(f"the tree states {int(tree['quad_count'])} quadrics "
                                   "and carries the arrays of "
                                   f"{0 if quad is None else len(quad['kind'])}")
     return Scene(
-        tri=triangles_from_numpy(t["positions"], t["indices"], t["normals"], t["uvs"],
-                                 t["has_normals"], t["material_id"], t["light_id"], device),
+        tri=_triangles(tree["tri"], device),
         quad=quadrics_from_numpy(quad, device),
         clusters=_clusters(tree["clusters"], device) if tree.get("clusters") else None,
         materials=materials_from_numpy(tree["materials"], device),
@@ -81,7 +102,10 @@ def scene_from_numpy(tree, device=None, tile=clmod.TILE):
         world_center=torch.as_tensor(np.asarray(tree["world_center"], np.float32),
                                      device=device),
         world_radius=float(np.float32(tree["world_radius"])),
-        tile=tile, media=media_from_numpy(tree["media"], device))
+        tile=tile, media=media_from_numpy(tree["media"], device),
+        instances=tuple(_instance_set(s, device, bool(tree.get("clusters")))
+                        for s in sets) or None,
+        bvh=bvh_from_numpy(tree["bvh"], device) if tree.get("bvh") else None)
 
 
 def camera_from_numpy(cam, device=None):

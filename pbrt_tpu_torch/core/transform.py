@@ -1,7 +1,9 @@
 """4x4 transforms (counterpart of pbrt_tpu/core/transform.py but its
-quaternions and AnimatedTransform). Matrices are built on the host in
-numpy and applied as float32 tensors: the camera matrices in float64, the
-rotations in float32 as the JAX package builds them."""
+quaternions and AnimatedTransform, which nothing calls: instances keep
+their own (w, x, y, z) quaternions and slerp in geom/instances.py).
+Matrices are built on the host in numpy and applied as float32 tensors:
+the camera matrices in float64, the rotations in float32 as the JAX
+package builds them."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -125,3 +127,4 @@ def translate_np(t):
     m = np.eye(4)
     m[:3, 3] = t
     return m
+

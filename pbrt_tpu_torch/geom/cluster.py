@@ -264,6 +264,13 @@ def intersect(cs: ClusterSet, o, d, t_min, t_max, tile=TILE):
     return _trace(cs, o, d, t_min, t_max, tile)
 
 
+def intersect_flagged(cs: ClusterSet, o, d, t_min, t_max, flag, tile=TILE):
+    """One launch over mixed lanes: the closest hit of lanes with flag 0,
+    any hit of lanes with flag 1 (whose `hit` is their occlusion). Returns
+    (hit, t, tri_idx, b1, b2)."""
+    return _trace(cs, o, d, t_min, t_max, tile, flag)
+
+
 def intersect_occluded(cs: ClusterSet, o, d, t_min, t_max, o_sh, d_sh, tmin_sh,
                        tmax_sh, tile=TILE):
     """Fused closest hit (o, d) and any hit (o_sh, d_sh): one sort, one

@@ -3,10 +3,12 @@ pbrt_tpu/geom/scene.py: make_scene's world bounds, intersect, occluded
 and intersect_occluded). The triangle pool runs through the tile×cluster
 tracer when the scene has clusters — each path bounce traces its
 extension and shadow rays in one fused launch, a standalone shadow query
-runs the any-hit kernel — and through the brute-force tracers otherwise.
-The quadric pool runs brute force after it, with the triangles' nearest
-t as its window. Instances are not ported: bridge.scene_from_numpy
-refuses a scene that carries them."""
+runs the any-hit kernel — else through the BVH when it has one, else
+through the brute-force tracers. The quadric pool runs brute force after
+it, with the triangles' nearest t as its window; then each instance set
+(geom/instances.py), its pairs of (instance, lane) traced as one
+object-space wavefront, at the lanes' shutter times (`time`, None for the
+shutter open)."""
 from __future__ import annotations
 
 import functools
@@ -18,7 +20,9 @@ import torch
 
 from ..core.types import INF, RAY_EPS, f32
 from ..lights import distrib
+from . import bvh as bvhmod
 from . import cluster as clmod
+from . import instances as instmod
 from . import quadrics as quadmod
 from . import triangle as trimod
 from .types import QUAD_HYPERBOLOID, Hit, QuadricSoA, TriangleSoA
@@ -37,6 +41,8 @@ class Scene:
     world_radius: float          # a float32 value
     tile: int = clmod.TILE       # rays per tracer tile
     media: Any = None            # shade.media.MediumTable or None
+    instances: Any = None        # tuple of instances.InstanceSet or None
+    bvh: Any = None              # bvh.BVHArrays (traced when there are no clusters) or None
 
     @property
     def device(self):
@@ -50,12 +56,16 @@ class Scene:
         return distrib.power_distribution(self.lights, self.world_radius)
 
 
-def world_bounds(positions, quad_params=None, quad_o2w=None, quad_kind=None):
+def world_bounds(positions, quad_params=None, quad_o2w=None, quad_kind=None,
+                 instances=None):
     """(center (3,) float32, radius as a float32 value) of the triangles'
-    vertices and each quadric's conservative box, as make_scene computes
-    them in numpy: the box's xy extent is the largest radius-like
-    parameter (the hyperboloid's grows with |z|), its z extent [z_min,
-    z_max] widened by the radius, its 8 corners taken to world space."""
+    vertices, each quadric's conservative box and each instance's
+    prototype vertices, as make_scene computes them in numpy: the box's xy
+    extent is the largest radius-like parameter (the hyperboloid's grows
+    with |z|), its z extent [z_min, z_max] widened by the radius, its 8
+    corners taken to world space; an instance's vertices go through its
+    slerped transform at 2 shutter times (5 if it rotates), and the radius
+    grows by 5% when any instance moves."""
     pts = [np.asarray(positions, np.float32)] if len(positions) else []
     if quad_kind is not None and len(quad_kind):
         o2w = np.asarray(quad_o2w, np.float32)
@@ -74,13 +84,44 @@ def world_bounds(positions, quad_params=None, quad_o2w=None, quad_kind=None):
                     corner = np.stack([sx * r_xy, sy * r_xy, z], axis=-1)
                     pts.append(np.einsum("qij,qj->qi", o2w[:, :3, :3], corner)
                                + o2w[:, :3, 3])
+    if instances:
+        pts += _instance_points(instances)
     if not pts:
         return np.zeros(3, np.float32), 1.0
     allp = np.concatenate(pts, axis=0)
     lo, hi = allp.min(0), allp.max(0)
     center = (lo + hi) / 2.0
-    return (np.asarray(center, np.float32),
-            float(np.float32(float(np.linalg.norm(hi - center)) + 1e-4)))
+    radius = float(np.linalg.norm(hi - center)) + 1e-4
+    if instances and any(s.animated for s in instances):
+        # chord-sampling the slerp leaves a sliver between samples
+        radius *= 1.05
+    return np.asarray(center, np.float32), float(np.float32(radius))
+
+
+def _instance_points(instances):
+    """Each instance's prototype vertices through its transform at 2
+    shutter times, 5 where it rotates (a slerp sweeps outside the end
+    poses), from the sets' float32 columns in the JAX package's order of
+    casts."""
+    pts = []
+    for iset in instances:
+        pos = iset.proto.positions.cpu().numpy()
+        cols = {k: getattr(iset, k).cpu().numpy() for k in ("lin", "q0", "q1", "t0", "t1")}
+        for i in range(iset.count):
+            lin, q0, q1, t0, t1 = (cols[k][i] for k in ("lin", "q0", "q1", "t0", "t1"))
+            n_times = 2 if np.allclose(q0, q1) else 5
+            for s in np.linspace(0.0, 1.0, n_times):
+                d01 = float(np.clip(np.dot(q0, q1), -1.0, 1.0))
+                qb = q1 if d01 >= 0 else -q1
+                th = np.arccos(abs(d01))
+                if th < 1e-6:
+                    q = q0
+                else:
+                    q = (np.sin((1 - s) * th) * q0 + np.sin(s * th) * qb) / np.sin(th)
+                q = q / np.linalg.norm(q)
+                t = (1 - s) * t0 + s * t1
+                pts.append(pos @ (instmod.quat_rotation_np(q) @ lin).T + t)
+    return pts
 
 
 def _window(n, active, device, t_min=None, t_max=None):
@@ -148,6 +189,52 @@ def _merge_quadrics(scene: Scene, hit: Hit, o, d, t_min, t_max) -> Hit:
                                     hit.uv_scale))
 
 
+def _merge_instance(hit: Hit, best_t, res) -> Hit:
+    """An instance set's per-lane closest hits (instances.trace) taken
+    where nearer than the hit so far (or than t_max)."""
+    found, t, p, ng, ns, uv, dpdu, uvs, pid, mat, lid = res
+    take = found & (t < best_t)
+    t3 = take[..., None]
+    return Hit(valid=hit.valid | take, t=torch.where(take, t, hit.t),
+               p=torch.where(t3, p, hit.p), ng=torch.where(t3, ng, hit.ng),
+               ns=torch.where(t3, ns, hit.ns), uv=torch.where(t3, uv, hit.uv),
+               dpdu=torch.where(t3, dpdu, hit.dpdu), wo=hit.wo,
+               material_id=torch.where(take, mat, hit.material_id),
+               light_id=torch.where(take, lid, hit.light_id),
+               prim_kind=torch.where(take, 2, hit.prim_kind),
+               prim_id=torch.where(take, pid, hit.prim_id),
+               uv_scale=torch.where(take, uvs, hit.uv_scale))
+
+
+def _instance_pass(scene: Scene, hit, rays, occ, shadow, time):
+    """Every instance set after the triangles and quadrics: the closest
+    hits of `rays` (o, d, t_min, t_max) merged into `hit`, and the shadow
+    rays (o, d, t_min, t_max) not yet occluded tested for any hit. Either
+    part may be None. Returns (hit, occ)."""
+    for iset in scene.instances:
+        sub = sh = None
+        if rays is not None:
+            o, d, t_min, t_max = rays
+            best_t = torch.where(hit.valid, hit.t, t_max)
+            sub = (o, d, t_min, best_t)
+        if shadow is not None:    # lanes already occluded need no more work
+            sh = shadow[:3] + (torch.where(occ, -1.0, shadow[3]),)
+        res, occ_i = instmod.trace(iset, sub, sh, time, scene.tile)
+        if res is not None:
+            hit = _merge_instance(hit, best_t, res)
+        if occ_i is not None:
+            occ = occ | occ_i
+    return hit, occ
+
+
+def _time(time, n, device):
+    """The lanes' shutter times (N,) float32, or None (shutter open)."""
+    if time is None:
+        return None
+    return torch.broadcast_to(torch.as_tensor(time, dtype=torch.float32, device=device),
+                              (n,)).detach()
+
+
 def _finish(scene: Scene, o, d, t_min, t_max, tri_result) -> Hit:
     """The hit record: wo = -d keeps d's gradient, the quadric pass gets
     the rays detached as the triangle tracers do."""
@@ -160,37 +247,55 @@ def _finish(scene: Scene, o, d, t_min, t_max, tri_result) -> Hit:
     return hit
 
 
-def intersect(scene: Scene, o, d, t_min=None, t_max=None, active=None) -> Hit:
+def _closest_triangles(scene: Scene, o, d, t_min, t_max):
+    """The triangle pool's closest hits: clusters, else BVH, else brute force."""
+    if scene.clusters is not None:
+        return clmod.intersect(scene.clusters, o, d, t_min, t_max, scene.tile)
+    if scene.bvh is not None:
+        return bvhmod.traverse_closest(scene.bvh, scene.tri, o, d, t_min, t_max)
+    return trimod.intersect_brute(scene.tri, o, d, t_min, t_max)
+
+
+def _any_triangle(scene: Scene, o, d, t_min, t_max):
+    """The triangle pool's any hit: clusters, else BVH, else brute force."""
+    if scene.clusters is not None:
+        return clmod.occluded(scene.clusters, o, d, t_min, t_max, scene.tile)
+    if scene.bvh is not None:
+        return bvhmod.traverse_any(scene.bvh, scene.tri, o, d, t_min, t_max)
+    return trimod.occluded_brute(scene.tri, o, d, t_min, t_max)
+
+
+def intersect(scene: Scene, o, d, t_min=None, t_max=None, active=None, time=None) -> Hit:
     """Closest hit for rays o, d (N, 3) with t in (t_min, t_max) (defaults
     RAY_EPS and INF; scalars or (N,)); `active` marks live lanes (dead
-    lanes get t_max < t_min and cost the tracer nothing)."""
+    lanes get t_max < t_min and cost the tracer nothing); `time` the
+    lanes' shutter times for animated instances (None: shutter open)."""
     t_min, t_max = _window(o.shape[0], active, o.device, t_min, t_max)
     res = None
     if scene.tri.count:
         # visibility is detached (pbrt_tpu/diff/inverse.py:1-12): no gradient
         # reaches the tracers, so the kernels and plain versions agree
-        o_, d_ = o.detach(), d.detach()
-        if scene.clusters is not None:
-            res = clmod.intersect(scene.clusters, o_, d_, t_min, t_max, scene.tile)
-        else:
-            res = trimod.intersect_brute(scene.tri, o_, d_, t_min, t_max)
-    return _finish(scene, o, d, t_min, t_max, res)
+        res = _closest_triangles(scene, o.detach(), d.detach(), t_min, t_max)
+    hit = _finish(scene, o, d, t_min, t_max, res)
+    if scene.instances:
+        hit = _instance_pass(scene, hit, (o.detach(), d.detach(), t_min, t_max), None, None,
+                             _time(time, o.shape[0], o.device))[0]
+    return hit
 
 
-def occluded(scene: Scene, o, d, t_min=None, t_max=None, active=None):
+def occluded(scene: Scene, o, d, t_min=None, t_max=None, active=None, time=None):
     """Any-hit (shadow) query for rays o, d (N, 3) with t in (t_min, t_max)
     (defaults RAY_EPS and INF; scalars or (N,)). Dead lanes (`active`
     false) get t_max = -1. Returns occ (N,) bool."""
     # visibility is detached (pbrt_tpu/diff/inverse.py:1-12)
     o, d = o.detach(), d.detach()
     t_min, t_max = _window(o.shape[0], active, o.device, t_min, t_max)
-    occ = None
-    if scene.tri.count:
-        if scene.clusters is not None:
-            occ = clmod.occluded(scene.clusters, o, d, t_min, t_max, scene.tile)
-        else:
-            occ = trimod.occluded_brute(scene.tri, o, d, t_min, t_max)
-    return _or_quadrics(scene, occ, o, d, t_min, t_max)
+    occ = _any_triangle(scene, o, d, t_min, t_max) if scene.tri.count else None
+    occ = _or_quadrics(scene, occ, o, d, t_min, t_max)
+    if scene.instances:
+        occ = _instance_pass(scene, None, None, occ, (o, d, t_min, t_max),
+                             _time(time, o.shape[0], o.device))[1]
+    return occ
 
 
 def _or_quadrics(scene: Scene, occ, o, d, t_min, t_max):
@@ -202,9 +307,10 @@ def _or_quadrics(scene: Scene, occ, o, d, t_min, t_max):
 
 
 def intersect_occluded(scene: Scene, o, d, o_sh, d_sh, tmax_sh, active=None,
-                       active_sh=None):
+                       active_sh=None, time=None):
     """Fused closest hit (o, d) and shadow query (o_sh, d_sh) with t in
-    (RAY_EPS, tmax_sh). Returns (Hit, occ)."""
+    (RAY_EPS, tmax_sh), at the lanes' shutter times `time` (N,) or None.
+    Returns (Hit, occ)."""
     t_min, t_max = _window(o.shape[0], active, o.device)
     # visibility is detached (pbrt_tpu/diff/inverse.py:1-12); wo keeps d's gradient
     o_, d_ = o.detach(), d.detach()
@@ -218,7 +324,12 @@ def intersect_occluded(scene: Scene, o, d, o_sh, d_sh, tmax_sh, active=None,
             res, occ = clmod.intersect_occluded(scene.clusters, o_, d_, t_min, t_max,
                                                 o_sh, d_sh, tmin_sh, tmax_sh, scene.tile)
         else:
-            res = trimod.intersect_brute(scene.tri, o_, d_, t_min, t_max)
-            occ = trimod.occluded_brute(scene.tri, o_sh, d_sh, tmin_sh, tmax_sh)
-    return (_finish(scene, o, d, t_min, t_max, res),
-            _or_quadrics(scene, occ, o_sh, d_sh, tmin_sh, tmax_sh))
+            res = _closest_triangles(scene, o_, d_, t_min, t_max)
+            occ = _any_triangle(scene, o_sh, d_sh, tmin_sh, tmax_sh)
+    hit = _finish(scene, o, d, t_min, t_max, res)
+    occ = _or_quadrics(scene, occ, o_sh, d_sh, tmin_sh, tmax_sh)
+    if scene.instances:
+        hit, occ = _instance_pass(scene, hit, (o_, d_, t_min, t_max), occ,
+                                  (o_sh, d_sh, tmin_sh, tmax_sh),
+                                  _time(time, o.shape[0], o.device))
+    return hit, occ

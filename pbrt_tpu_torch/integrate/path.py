@@ -151,6 +151,11 @@ def li(scene, o, d, pixel_id, sample_idx, cfg, rr_start=3, return_stats=False,
         sample1 = lambda bounce, slot: p1(bounce, slot).reshape(n)          # noqa: E731
         sample2 = lambda bounce, slot: p2(bounce, slot).reshape(n, 2)       # noqa: E731
         compact_from = None
+    # the shutter time of animated instances, from the sampler's stream
+    # (raw: the camera's shutter does not scale it, as in the reference)
+    time = None
+    if provider is None and any(s.animated for s in scene.instances or ()):
+        time = smp.sample_1d(cfg.sampler, pixel_id, sample_idx, smp.DIM_TIME)
 
     f3 = dict(dtype=torch.float32, device=dev)
     L = torch.zeros((n, 3), **f3)
@@ -167,7 +172,7 @@ def li(scene, o, d, pixel_id, sample_idx, cfg, rr_start=3, return_stats=False,
     cone_w = torch.full((n,), cone[0], **f3)
     cone_s = torch.full((n,), cone[1], **f3)
 
-    hit = scenemod.intersect(scene, o, d)
+    hit = scenemod.intersect(scene, o, d, time=time)
     rays_traced = rays_traced + n
     gid = torch.arange(n, dtype=torch.int64, device=dev)
     L_out = None
@@ -187,7 +192,9 @@ def li(scene, o, d, pixel_id, sample_idx, cfg, rr_start=3, return_stats=False,
                  d, prev_p, prev_pdf, prev_spec, *hit_vals) = _gather_packed(order, [
                      beta, eta_scale, cone_w, cone_s, pixel_id, sample_idx, active,
                      gid, d, prev_p, prev_pdf, prev_spec,
-                     *(getattr(hit, k) for k in hit_fields)])
+                     *(getattr(hit, k) for k in hit_fields)] + ([] if time is None else [time]))
+                if time is not None:
+                    *hit_vals, time = hit_vals
                 hit = Hit(**dict(zip(hit_fields, hit_vals)))
                 L = torch.zeros((m, 3), **f3)
                 # Russian-roulette compensation when live lanes exceed the width
@@ -279,7 +286,7 @@ def li(scene, o, d, pixel_id, sample_idx, cfg, rr_start=3, return_stats=False,
             prev_pdf = torch.where(ok, pdf_cos, prev_pdf)
             prev_spec = prev_spec & ~ok
         hit, occ = scenemod.intersect_occluded(scene, o, d, o_sh, wi_sh, tmax_sh,
-                                               active=active, active_sh=usable)
+                                               active=active, active_sh=usable, time=time)
         L = L + torch.where((usable & ~occ)[..., None], nee_c, 0.0)
         rays_traced = rays_traced + active.to(torch.float32).sum()
 

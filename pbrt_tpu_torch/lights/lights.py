@@ -93,12 +93,14 @@ def build_lights(rows, positions=None, indices=None, quad_params=None, env_image
     build_lights. Keys per kind:
       point: p, I | spot: p, direction, I, cone_deg, falloff_deg
       distant: direction (toward the light), L
-      area_tri: tri_ids (scene triangle ids), L, two_sided
+      area_tri: tri_ids (scene triangle ids) or tris (T, 9) world-space
+        corner rows (an emissive instance's), L, two_sided
       area_sphere: quadric_id, L, two_sided
       infinite: L (scale of env_image) | gonio: p, I | projection: p,
       direction, I, fov_deg (both read gonio_image)."""
     n = len(rows)
-    me = max([len(r.get("tri_ids", [])) for r in rows] + [1])
+    me = max([len(np.asarray(r["tris"]).reshape(-1, 9)) if "tris" in r
+              else len(r.get("tri_ids", [])) for r in rows] + [1])
     kind = np.zeros(n, np.int32)
     p = np.zeros((n, 3), np.float32)
     direction = np.tile(np.array([0, 0, 1], np.float32), (n, 1))
@@ -139,18 +141,25 @@ def build_lights(rows, positions=None, indices=None, quad_params=None, env_image
         if k == LIGHT_PROJECTION:
             cos_end[i] = np.cos(np.deg2rad(r.get("fov_deg", 45.0) / 2.0))
         if k == LIGHT_AREA_TRI:
-            pos = np.asarray(positions)
-            idx = np.asarray(indices).reshape(-1, 3)
-            ids = np.asarray(r["tri_ids"], np.int32)
-            em_tri_idx[i, :len(ids)] = ids
-            v0, v1, v2 = (pos[idx[ids, c]] for c in range(3))
-            prim_count[i] = len(ids)
+            if "tris" in r:
+                # explicit corner rows: an emissive instance's triangles live
+                # in its prototype, not the scene's pool (em_tri_idx stays -1)
+                corners = np.asarray(r["tris"], np.float32).reshape(-1, 9)
+                v0, v1, v2 = corners[:, 0:3], corners[:, 3:6], corners[:, 6:9]
+            else:
+                pos = np.asarray(positions)
+                idx = np.asarray(indices).reshape(-1, 3)
+                ids = np.asarray(r["tri_ids"], np.int32)
+                em_tri_idx[i, :len(ids)] = ids
+                v0, v1, v2 = (pos[idx[ids, c]] for c in range(3))
+            nid = len(v0)
+            prim_count[i] = nid
             areas = 0.5 * np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=-1)
-            em_tri_p[i, :len(ids)] = np.concatenate([v0, v1, v2], axis=1)
+            em_tri_p[i, :nid] = np.concatenate([v0, v1, v2], axis=1)
             total_area[i] = areas.sum()
             cdf = np.concatenate([[0.0], np.cumsum(areas)]) / max(areas.sum(), 1e-12)
-            em_tri_cdf[i, :len(ids) + 1] = cdf
-            em_tri_cdf[i, len(ids) + 1:] = 1.0
+            em_tri_cdf[i, :nid + 1] = cdf
+            em_tri_cdf[i, nid + 1:] = 1.0
             two_sided[i] = bool(r.get("two_sided", False))
         if k == LIGHT_AREA_SPHERE:
             qid = int(r["quadric_id"])

@@ -7,8 +7,10 @@ spheres of the baseline configs (counterpart of
 scenes/cornell.cornell_spheres); the Cornell box with a table of all
 eight light kinds, and config 2's published size; baseline config 4, the
 fog-filled box and its smoke variant (counterpart of
-scenes/volumetric.py), the bench scene in fog, and the appearance box.
-Each is built with api.SceneBuilder."""
+scenes/volumetric.py), the bench scene in fog, the appearance box, and the
+instance field (the bench room with 64 instances of one mesh, some moving
+over the shutter, and an emissive instance). Each is built with
+api.SceneBuilder."""
 from __future__ import annotations
 
 import dataclasses
@@ -20,7 +22,8 @@ from .api import SceneBuilder
 from .cameras import cameras as cammod
 from .core import transform as tf
 from .geom import cluster as clmod
-from .geom.meshio import bench_blob, read_ply
+from .geom.meshio import bench_blob, icosphere, read_ply
+from .geom.subdiv import loop_subdivide
 from .lights import lights as lightsmod
 from .shade import materials as matmod
 from .shade import media as medmod
@@ -80,6 +83,70 @@ def bench_scene(subdivisions=6, device=None, tile=clmod.TILE, blob="plastic", pl
     e, c, y = 0.25, s / 2, s - 1e-3
     b.area_light_quad([c - e, y, -c + e], [c - e, y, -c - e],
                       [c + e, y, -c - e], [c + e, y, -c + e], radiance=(14.0, 14.0, 14.0))
+    return b.build(True, device, tile)
+
+
+def _rotation(axis, angle):
+    """4x4 rotation by `angle` radians about `axis` (Rodrigues, float64)."""
+    a = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    k = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+    m = np.eye(4)
+    m[:3, :3] = np.eye(3) + np.sin(angle) * k + (1 - np.cos(angle)) * k @ k
+    return m
+
+
+def instance_field(n_side=8, proto_subdivisions=3, animated=16, device=None,
+                   tile=clmod.TILE):
+    """The instance field on `device` (cuda unless told otherwise): the bench
+    room (wood floor, ceiling, back wall, the 14-radiance quad light) without
+    the blob, and an n_side × n_side grid over the floor of instances of one
+    prototype, a Loop-subdivided icosphere (icosphere(1) through
+    proto_subdivisions - 1 levels of subdiv.loop_subdivide: 1,280 triangles
+    at 3; 64 × 1,280 = the bench blob's 81,920 at n_side 8), about 0.05
+    across. Rotations and per-axis scales 0.8–1.2 come from
+    np.random.RandomState(5); `animated` of the instances move over the
+    shutter, 0.04 along x and 30° about y; the materials cycle through
+    plastic, metal and matte. One static instance of a 2-triangle quad
+    prototype on the back wall emits radiance 4. Built with `bvh`: the
+    room's triangles and each prototype run through the cluster tracer."""
+    device = resolve_device(device)
+    b = SceneBuilder()
+    white = b.matte(kd=(0.73, 0.73, 0.73))
+    wood = b.textures.image(wood_image(), su=3.0, sv=3.0)
+    floor_mat = b.material(kind=matmod.MAT_MATTE, kd=(1.0, 1.0, 1.0), kd_tex=wood,
+                           sigma=0.0)
+    mats = (b.plastic(kd=(0.4, 0.25, 0.12), ks=(0.3, 0.3, 0.3), roughness=0.08),
+            b.metal(roughness=0.05), b.matte(kd=(0.6, 0.6, 0.6)))
+    s = 1.0
+    b.add_quad([0, 0, 0], [s, 0, 0], [s, 0, -s], [0, 0, -s], floor_mat)
+    b.add_quad([0, s, 0], [0, s, -s], [s, s, -s], [s, s, 0], white)
+    b.add_quad([0, 0, -s], [s, 0, -s], [s, s, -s], [0, s, -s], white)
+    e, c, y = 0.25, s / 2, s - 1e-3
+    b.area_light_quad([c - e, y, -c + e], [c - e, y, -c - e],
+                      [c + e, y, -c - e], [c + e, y, -c + e], radiance=(14.0, 14.0, 14.0))
+    v, f = icosphere(1)
+    v, f = loop_subdivide(v, f, levels=proto_subdivisions - 1)
+    proto = b.instanced_prototype(v, f, normals=v / np.linalg.norm(v, axis=1, keepdims=True))
+    r = np.random.RandomState(5)
+    n = n_side * n_side
+    axes, angles = r.randn(n, 3), r.uniform(0.0, 2.0 * np.pi, n)
+    scales = r.uniform(0.8, 1.2, (n, 3))
+    moving = set(r.choice(n, min(animated, n), replace=False).tolist())
+    grid = (np.arange(n_side) + 0.5) / n_side * 0.8 + 0.1
+    spin = _rotation((0.0, 1.0, 0.0), np.pi / 6.0)
+    for i in range(n):
+        lin = _rotation(axes[i], angles[i]) @ np.diag([*(0.025 * scales[i]), 1.0])
+        m0 = tf.translate_np([grid[i % n_side], 0.04, -grid[i // n_side]]) @ lin
+        m1 = None
+        if i in moving:
+            m1 = tf.translate_np([grid[i % n_side] + 0.04, 0.04, -grid[i // n_side]]) \
+                @ spin @ lin
+        b.add_instance(proto, mats[i % 3], m0, transform1=m1)
+    panel = b.instanced_prototype([[-0.5, -0.5, 0.0], [0.5, -0.5, 0.0], [0.5, 0.5, 0.0],
+                                   [-0.5, 0.5, 0.0]], [[0, 1, 2], [0, 2, 3]])
+    b.add_instance(panel, b.matte(kd=0.0),
+                   tf.translate_np([0.25, 0.6, -0.99]) @ tf.scale_np([0.2, 0.2, 1.0]),
+                   emit=(4.0, 4.0, 4.0))
     return b.build(True, device, tile)
 
 

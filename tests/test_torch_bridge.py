@@ -1,10 +1,11 @@
 """The bridge refuses what the port would drop without a word: a scene
 tree that does not state its quadric and instance counts or its media,
-one that states quadrics and leaves out their arrays, one with
-instances, and a material table that leaves out a texture channel or its
-medium interface columns. The Cornell box's
-tree (two spheres) bridges; a fog tree keeps its medium, and a table
-with interface columns keeps them."""
+one that states quadrics and leaves out their arrays, one that states
+instance sets other than those it carries, and a material table that
+leaves out a texture channel or its medium interface columns. The
+Cornell box's tree (two spheres) bridges; a fog tree keeps its medium, a
+table with interface columns keeps them, and a tree with instance sets
+and a BVH keeps both."""
 import numpy as np
 import pytest
 
@@ -36,8 +37,28 @@ def test_tree_without_counts_is_refused(drop):
                                     "cpu", tile=256)
     with pytest.raises(NotImplementedError):
         bridge.scene_from_numpy(dict(cornell, quad=None), "cpu", tile=256)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):      # states an instance set, carries none
         bridge.scene_from_numpy(dict(mesh, instance_count=1), "cpu", tile=256)
+
+
+def test_tree_with_instances_and_a_bvh_bridges():
+    """A scene with an instance set and BVHArrays: the bridge carries the
+    set's columns and the BVH as they are; a tree that states fewer sets
+    than it carries is refused."""
+    from pbrt_tpu.geom import bvh as jbvh
+    from tests.test_torch_instances import emissive
+    b = SceneBuilder()
+    emissive(b)
+    js = b.build()
+    js = js._replace(bvh=jbvh.build_bvh(np.asarray(js.tri.positions), np.asarray(js.tri.indices)))
+    tree = scene_tree(js)
+    assert tree["instance_count"] == 1 and tree["bvh"] is not None
+    ts = bridge.scene_from_numpy(tree, "cpu", tile=256)
+    assert ts.instances[0].count == 1 and ts.instances[0].clusters is None
+    assert np.array_equal(ts.instances[0].q0.numpy(), np.asarray(js.instances[0].q0))
+    assert np.array_equal(ts.bvh.prim_order.numpy(), np.asarray(js.bvh.prim_order))
+    with pytest.raises(NotImplementedError):
+        bridge.scene_from_numpy(dict(tree, instance_count=0), "cpu", tile=256)
 
 
 @pytest.mark.parametrize("channel", tmat.TEXTURE_COLUMNS)

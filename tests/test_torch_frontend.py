@@ -1,9 +1,9 @@
 """The port's front end against pbrt_tpu: api.SceneBuilder, the `.pbrt`
 loader, PLY meshes and image files.
 
-- One scene through every SceneBuilder method (instances aside, which the
-  port refuses) equals, through the bridge, the JAX builder's scene: every
-  array bit for bit. With spatial_light_distrib the port's builder gives
+- One scene through every SceneBuilder method (instances aside: they
+  are held in tests/test_torch_instances.py) equals, through the bridge,
+  the JAX builder's scene: every array bit for bit. With spatial_light_distrib the port's builder gives
   the scene lights.distrib.build_spatial's grid (which
   tests/test_torch_lights.py holds to the JAX package's; the JAX builder's
   own grid takes 8–27 s op by op, so its scene is built without one).
@@ -119,11 +119,17 @@ def test_every_builder_method_equals_the_jax_builder(monkeypatch):
     for f in ("grid_cdf", "grid_func", "world_min", "world_ext"):
         assert torch.equal(getattr(native.light_distrib, f), getattr(want, f)), f
     assert native.light_distrib.resolution == (8, 8, 8)
-    b = TSceneBuilder()
-    for call in (lambda: b.instanced_prototype(np.zeros((3, 3)), [[0, 1, 2]]),
-                 lambda: b.add_instance(0, 0, np.eye(4))):
-        with pytest.raises(NotImplementedError, match="instances"):
-            call()
+    # the instancing methods (they raised before the port had instances):
+    # the JAX builder's ids and instance set (tests/test_torch_instances.py
+    # holds the rest)
+    jb, tb = SceneBuilder(), TSceneBuilder()
+    for b in (jb, tb):
+        assert b.instanced_prototype(np.eye(3), [[0, 1, 2]]) == 0
+        assert b.add_instance(0, b.matte(kd=0.5), np.eye(4)) == 0
+    ji, ti = jb.build().instances, tb.build(device="cpu").instances
+    assert len(ti) == len(ji) == 1 and ti[0].count == 1
+    for f in ("q0", "t0", "lin", "bmin", "bmax"):
+        assert np.array_equal(getattr(ti[0], f).numpy(), np.asarray(getattr(ji[0], f))), f
 
 
 PLY_SCENE = SCENE.replace("WorldEnd", """  AttributeBegin

@@ -16,12 +16,16 @@ from pbrt_tpu.lights import lights as jlights
 from scenes.bunny import mesh_scene
 
 from pbrt_tpu_torch import bridge
+from pbrt_tpu_torch.geom import bvh as tbvh
+from pbrt_tpu_torch.geom import instances as tinst
 from pbrt_tpu_torch.shade import materials as tmat
 from pbrt_tpu_torch.shade import media as tmedia
 from pbrt_tpu_torch.shade import textures as ttex
 from pbrt_tpu_torch.lights import lights as tlights
 
 RTOL, ATOL = 1e-4, 1e-6
+TRI_FIELDS = ("positions", "indices", "normals", "uvs", "has_normals", "material_id",
+              "light_id")
 
 
 def scene_tree(js):
@@ -36,8 +40,7 @@ def scene_tree(js):
     lights["env_index"] = lt.env_index
     n_quad = int(js.quad.kind.shape[0])
     tree = dict(
-        tri=a(js.tri, ("positions", "indices", "normals", "uvs", "has_normals",
-                       "material_id", "light_id")),
+        tri=a(js.tri, TRI_FIELDS),
         quad=a(js.quad, js.quad._fields) if n_quad else None,
         clusters=a(js.clusters, js.clusters._fields) if js.clusters is not None else None,
         materials=a(js.materials, ("kind", "remap_roughness", *tmat.FLOAT_COLUMNS,
@@ -48,6 +51,9 @@ def scene_tree(js):
         world_center=np.asarray(js.world_center),
         world_radius=float(js.world_radius), quad_count=n_quad,
         instance_count=len(js.instances or ()),
+        instances=[dict(proto=a(s.proto, TRI_FIELDS), **a(s, [k for k, _ in tinst.COLUMNS]),
+                        animated=s.animated) for s in js.instances or ()] or None,
+        bvh=a(js.bvh, tbvh.COLUMNS) if js.bvh is not None else None,
         media=a(js.media, tmedia.COLUMNS) if js.media is not None else None)
     for k in ("med_inside", "med_outside"):
         col = getattr(js.materials, k)

@@ -29,11 +29,13 @@ field, scenes.instance_field, path at depth 5 with compact_from=1,
 with geom/bvh.py's BVH in place of the cluster set: the plain-PyTorch
 traversal), through pbrt_tpu_torch: for each,
 one warm-up, three frames timed with the host clock around
-torch.cuda.synchronize(), then one frame under torch.profiler. Prints the
-frame time, the device-busy share (sum of GPU kernel time over the
-profiled frame's wall time), the time of the CUDA
-tracing kernels (coverage's two passes each and together), the count of
-GPU kernel launches, and the top ops by device time and by count.
+torch.cuda.synchronize(), three more in turns with three inside
+pbrt_tpu_torch.trace.recording() (the cost of the port's tracing when
+on), then one frame under torch.profiler. Prints the frame times, the
+time of the CUDA tracing kernels (coverage's two passes each and
+together), the count of GPU kernel launches, the top ops by device time
+and by count, and the port's spans of the profiled frame (count, host
+ms, host self ms by span name, pbrt_tpu_torch/trace.py).
 `grad` is baseline config 5 at the bench scene's width: one training
 step (dist.sharding's, one rank) of the bench path frame with the white
 walls' and the blob's kd and the light's emit perturbed; three steps
@@ -48,9 +50,12 @@ lane's window reaches, so the pairs stay the field's and only the dense
 (instances × lanes) pre-cull grows.
 Needs a GPU; prints the card's name and power limit.
 """
+import contextlib
 import subprocess
 import sys
 import time
+
+from pbrt_tpu_torch import trace
 
 
 FRAMES = 3
@@ -208,12 +213,14 @@ def profile_grad(torch, dev):
     print(f"[grad] forward_ms={[round(f, 3) for f, _, _ in times]} "
           f"backward_ms={[round(b, 3) for _, b, _ in times]} rays_per_step={rays:.0f} "
           f"mrays_per_s_fwd_bwd={rays / (sum(fb) / len(fb) / 1e3) / 1e6:.3f}", flush=True)
+    trace.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_f:
         t0 = time.perf_counter()
         loss, params, _ = step.forward(sc, cam, target)
         torch.cuda.synchronize()
         wall_f = (time.perf_counter() - t0) * 1e3
     report(torch, "grad_forward", prof_f, wall_f)
+    trace.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_b:
         t0 = time.perf_counter()
         step.backward(loss, params)
@@ -281,7 +288,18 @@ def profile_frame(torch, name, frame):
     rays = float(stats["rays_traced"])    # each integrator counts its own
     print(f"[{name}] frame_ms={[round(t, 3) for t in times]} rays_per_frame={rays:.0f} "
           f"mrays_per_s={rays / (sum(times) / len(times) / 1e3) / 1e6:.3f}", flush=True)
+    plain, recorded = [], []
+    for _ in range(FRAMES):
+        for out, ctx in ((plain, contextlib.nullcontext), (recorded, trace.recording)):
+            t0 = time.perf_counter()
+            with ctx():
+                frame()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+    print(f"[{name}] in turns: frame_ms={[round(t, 3) for t in plain]} "
+          f"recorded_frame_ms={[round(t, 3) for t in recorded]}", flush=True)
 
+    trace.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         frame()
@@ -291,11 +309,10 @@ def profile_frame(torch, name, frame):
 
 
 def report(torch, name, prof, wall_ms):
-    """The device-busy share, the tracing kernels' device time, the GPU
-    launches and the top ops of one profiled stretch."""
+    """The tracing kernels' device time, the GPU launches, the top ops and
+    the port's spans of one profiled stretch."""
     events = prof.events()
     dev_kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.device_time for e in dev_kernels) / 1e3
     ours = {}
     for e in dev_kernels:
         for k in ("coverage_lanes_kernel", "coverage_columns_kernel", "closest_kernel",
@@ -304,8 +321,7 @@ def report(torch, name, prof, wall_ms):
                 c = ours.setdefault(k, [0, 0.0])
                 c[0] += 1
                 c[1] += e.device_time / 1e3
-    print(f"[{name}] profiled_frame_wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
-          f"device_busy_share={busy_ms / wall_ms:.4f} gpu_kernel_launches={len(dev_kernels)}",
+    print(f"[{name}] profiled_frame_wall_ms={wall_ms:.3f} gpu_kernel_launches={len(dev_kernels)}",
           flush=True)
     for k, (n, ms) in ours.items():
         print(f"[{name}] {k}: launches={n} device_ms={ms:.3f}", flush=True)
@@ -315,6 +331,11 @@ def report(torch, name, prof, wall_ms):
     averages = prof.key_averages()
     print(averages.table(sort_by="self_device_time_total", row_limit=40), flush=True)
     print(averages.table(sort_by="count", row_limit=30), flush=True)
+    recs = trace.records()            # recorded while the profiler was on
+    print(f"[{name}] port spans: {len(recs)}; counters {trace.counters()}", flush=True)
+    for span, n, total, own in trace.table(recs):
+        print(f"[{name}]   {span:<20} count={n:<5} host_ms={total:10.3f} self_ms={own:10.3f}",
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -2132,11 +2132,9 @@ def main():
         n_nan = int(torch.isnan(img).sum())
         rays = float(stats["rays_traced"])    # each integrator counts its own
         ms = [t * 1e3 for t in times]
-        extra = {} if "occupancy" not in stats else {
-            "occupancy": [round(float(x), 4) for x in stats["occupancy"]]}
         log(tag, resolution=f"{res}x{res}", spp=1, frame_ms=ms,
             mrays_per_s=f"{rays * frames / sum(times) / 1e6:.3f}", rays_per_frame=rays,
-            **extra, image_mean=f"{float(img.mean()):.6f}", nan=n_nan, launches=launches)
+            image_mean=f"{float(img.mean()):.6f}", nan=n_nan, launches=launches)
         if n_nan or not bool(torch.isfinite(img).all()) or tuple(img.shape) != (res, res, 3):
             fail(f"{tag}: image is not finite")
         want = {k: v * frames for k, v in per_frame.items()}

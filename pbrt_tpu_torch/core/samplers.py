@@ -19,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import trace
 from . import lowdiscrepancy as ld
 from .rng import M32, hash_combine, mul32, uniform_float
 from .types import ONE_MINUS_EPSILON, divisor
@@ -91,6 +92,7 @@ def _stratified_1d(cfg, pixel_id, sample_idx, dim):
     return torch.clamp(u, max=ONE_MINUS_EPSILON)
 
 
+@trace.spanned("sampler.sample_1d")
 def sample_1d(cfg: SamplerConfig, pixel_id, sample_idx, dim: int):
     """One U[0,1) per lane."""
     pixel_id, sample_idx = _ids(pixel_id, sample_idx)
@@ -109,6 +111,7 @@ def sample_1d(cfg: SamplerConfig, pixel_id, sample_idx, dim: int):
     raise ValueError(f"unknown sampler kind {cfg.kind!r}")
 
 
+@trace.spanned("sampler.sample_2d")
 def sample_2d(cfg: SamplerConfig, pixel_id, sample_idx, dim: int):
     """Two U[0,1) per lane, shape (..., 2), from dims (dim, dim+1)."""
     pixel_id, sample_idx = _ids(pixel_id, sample_idx)

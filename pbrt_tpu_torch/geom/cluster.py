@@ -16,6 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.types import INF, f32
 from ..kernels import cluster_cuda as kern
 from . import native_build
@@ -201,6 +202,7 @@ def prepare(cs: ClusterSet, o, d, t_min, t_max, tile, flag=None):
     key = torch.where(t_max > t_min, key, _DEAD_KEY)
     order = torch.argsort(key, stable=True)
     pad = (-n) % tile
+    trace.count("tracer.lanes", n + pad)
     order_p = torch.cat([order, torch.zeros(pad, dtype=order.dtype, device=o.device)])
     rec = torch.cat([o.T, d.T, t_min[None], t_max[None]]
                     + ([flag[None].to(torch.float32)] if flag is not None else []))
@@ -217,6 +219,7 @@ def tile_cluster_order(cs: ClusterSet, rays, tile):
     covbits)."""
     c = cs.n_clusters
     n_live = (rays[7] > rays[6]).sum()
+    trace.count("tracer.live_lanes", n_live)
     n_live_tiles = torch.div(n_live + tile - 1, tile, rounding_mode="floor")
     tnear, covbits = kern.coverage(rays, cs.bounds,
                                    n_live_tiles.to(torch.int32).reshape(1), c, tile)

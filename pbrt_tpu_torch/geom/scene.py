@@ -18,6 +18,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.types import INF, RAY_EPS, f32
 from ..lights import distrib
 from . import bvh as bvhmod
@@ -265,6 +266,7 @@ def _any_triangle(scene: Scene, o, d, t_min, t_max):
     return trimod.occluded_brute(scene.tri, o, d, t_min, t_max)
 
 
+@trace.spanned("tracer.intersect")
 def intersect(scene: Scene, o, d, t_min=None, t_max=None, active=None, time=None) -> Hit:
     """Closest hit for rays o, d (N, 3) with t in (t_min, t_max) (defaults
     RAY_EPS and INF; scalars or (N,)); `active` marks live lanes (dead
@@ -283,6 +285,7 @@ def intersect(scene: Scene, o, d, t_min=None, t_max=None, active=None, time=None
     return hit
 
 
+@trace.spanned("tracer.intersect")
 def occluded(scene: Scene, o, d, t_min=None, t_max=None, active=None, time=None):
     """Any-hit (shadow) query for rays o, d (N, 3) with t in (t_min, t_max)
     (defaults RAY_EPS and INF; scalars or (N,)). Dead lanes (`active`
@@ -306,6 +309,7 @@ def _or_quadrics(scene: Scene, occ, o, d, t_min, t_max):
     return torch.zeros_like(t_max, dtype=torch.bool) if occ is None else occ
 
 
+@trace.spanned("tracer.intersect")
 def intersect_occluded(scene: Scene, o, d, o_sh, d_sh, tmax_sh, active=None,
                        active_sh=None, time=None):
     """Fused closest hit (o, d) and shadow query (o_sh, d_sh) with t in

@@ -10,6 +10,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from ..cameras import generate_rays_weighted
 from ..core import samplers as smp
 from ..film import film as filmmod
@@ -41,6 +42,7 @@ def lane_ids(cfg: RenderConfig, sample_lo, sample_hi, device):
     return pixel_id.contiguous(), sample_idx.contiguous()
 
 
+@trace.spanned("driver.camera")
 def camera_rays(camera, cfg: RenderConfig, pixel_id, sample_idx):
     """Film sampling and camera raygen for explicit lanes. Returns
     (o, d, camera weight, filter weight)."""
@@ -91,12 +93,14 @@ def accumulate(scene, camera, cfg: RenderConfig, li_fn, acc, wacc, sample_lo=0):
         if isinstance(r, tuple):
             r, stats = r
             rays = stats["rays_traced"]
-        a, b = filmmod.sums(r, wt, h, w)
-        acc = acc + a
-        wacc = wacc + b
+        with trace.span("driver.film"):
+            a, b = filmmod.sums(r, wt, h, w)
+            acc = acc + a
+            wacc = wacc + b
         yield hi, acc, wacc, rays
 
 
+@trace.spanned("driver.render")
 def render(scene, camera, cfg: RenderConfig, li_fn):
     """Full render → (H, W, 3) image. With an li_fn that returns
     (radiance, stats), returns (image, {"rays_traced": summed over the
@@ -107,5 +111,6 @@ def render(scene, camera, cfg: RenderConfig, li_fn):
     for _, acc, wacc, r in accumulate(scene, camera, cfg, li_fn, acc, wacc):
         if r is not None:
             rays = r if rays is None else rays + r
-    img = filmmod.resolve(acc, wacc)
+    with trace.span("driver.film"):
+        img = filmmod.resolve(acc, wacc)
     return img if rays is None else (img, {"rays_traced": rays})

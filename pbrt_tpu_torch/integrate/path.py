@@ -23,6 +23,7 @@ import dataclasses
 
 import torch
 
+from .. import trace
 from ..core import samplers as smp
 from ..core import vecmath as vm
 from ..core.sampling import power_heuristic
@@ -87,6 +88,7 @@ def default_provider(cfg, pixel_id, sample_idx):
     return sample1, sample2
 
 
+@trace.spanned("lights.emission")
 def _emission_pickup(scene, lights, cfg, hit, d, prev_p, prev_pdf, prev_spec, counts):
     """Radiance of the emitter a ray hit (or the infinite light it
     escaped to), MIS-weighted against the NEE strategy that could have
@@ -130,11 +132,12 @@ def _subsurface_leg(scene, cfg, hit, frame, lp, trans, L, beta, active, sample1,
     return L, beta, active, (ok, exit_hit, wi, pdf_cos)
 
 
+@trace.spanned("driver.li")
 def li(scene, o, d, pixel_id, sample_idx, cfg, rr_start=3, return_stats=False,
        cone=None, compact_from=None, provider=None):
     """Radiance along camera rays o, d (..., 3) for lanes (pixel_id,
     sample_idx). Returns L (..., 3), and with `return_stats` also
-    {"rays_traced": scalar tensor, "occupancy": (max_depth,) tensor}.
+    {"rays_traced": scalar tensor}.
     `provider` (sample1, sample2) supplies the uniforms in place of the
     sampler (default_provider); compaction is off under it, and the
     texture-footprint jitter takes the centre tap."""
@@ -166,7 +169,6 @@ def li(scene, o, d, pixel_id, sample_idx, cfg, rr_start=3, return_stats=False,
     prev_p = o
     eta_scale = torch.ones((n,), **f3)
     rays_traced = torch.zeros((), **f3)
-    occupancy = []
     if cone is None:
         cone = (0.0, f32(0.9 / max(cfg.height, 1)))
     cone_w = torch.full((n,), cone[0], **f3)
@@ -178,117 +180,128 @@ def li(scene, o, d, pixel_id, sample_idx, cfg, rr_start=3, return_stats=False,
     L_out = None
 
     for bounce in range(cfg.max_depth):
-        if compact_from is not None and bounce >= compact_from:
-            m = _compact_width(n0, bounce, compact_from)
-            if m < n:
-                key = torch.where(active, sample1(bounce, DIM_COMPACT), 2.0)   # dead last
-                order = torch.argsort(key, stable=True)[:m]
-                live_n = active.to(torch.float32).sum()
-                if L_out is None:
-                    L_out = torch.zeros((n0, 3), **f3)
-                L_out = L_out.index_put((gid,), L, accumulate=True)
-                hit_fields = [f.name for f in dataclasses.fields(hit)]
-                (beta, eta_scale, cone_w, cone_s, pixel_id, sample_idx, active, gid,
-                 d, prev_p, prev_pdf, prev_spec, *hit_vals) = _gather_packed(order, [
-                     beta, eta_scale, cone_w, cone_s, pixel_id, sample_idx, active,
-                     gid, d, prev_p, prev_pdf, prev_spec,
-                     *(getattr(hit, k) for k in hit_fields)] + ([] if time is None else [time]))
-                if time is not None:
-                    *hit_vals, time = hit_vals
-                hit = Hit(**dict(zip(hit_fields, hit_vals)))
-                L = torch.zeros((m, 3), **f3)
-                # Russian-roulette compensation when live lanes exceed the width
-                scale = torch.clamp(live_n / m, min=1.0)
-                beta = torch.where(active[..., None], beta * scale, beta)
-                n = m
-                sample1, sample2 = default_provider(cfg, pixel_id, sample_idx)
+        with trace.span("driver.bounce"):
+            if compact_from is not None and bounce >= compact_from:
+                m = _compact_width(n0, bounce, compact_from)
+                if m < n:
+                    with trace.span("compaction.compact"):
+                        key = torch.where(active, sample1(bounce, DIM_COMPACT), 2.0)   # dead last
+                        order = torch.argsort(key, stable=True)[:m]
+                        live_n = active.to(torch.float32).sum()
+                        if L_out is None:
+                            L_out = torch.zeros((n0, 3), **f3)
+                        L_out = L_out.index_put((gid,), L, accumulate=True)
+                        hit_fields = [f.name for f in dataclasses.fields(hit)]
+                        (beta, eta_scale, cone_w, cone_s, pixel_id, sample_idx, active, gid,
+                         d, prev_p, prev_pdf, prev_spec, *hit_vals) = _gather_packed(order, [
+                             beta, eta_scale, cone_w, cone_s, pixel_id, sample_idx, active,
+                             gid, d, prev_p, prev_pdf, prev_spec,
+                             *(getattr(hit, k) for k in hit_fields)]
+                            + ([] if time is None else [time]))
+                        if time is not None:
+                            *hit_vals, time = hit_vals
+                        hit = Hit(**dict(zip(hit_fields, hit_vals)))
+                        L = torch.zeros((m, 3), **f3)
+                        # Russian-roulette compensation when live lanes exceed the width
+                        scale = torch.clamp(live_n / m, min=1.0)
+                        beta = torch.where(active[..., None], beta * scale, beta)
+                        n = m
+                        sample1, sample2 = default_provider(cfg, pixel_id, sample_idx)
 
-        wo = -d
-        occupancy.append(active.to(torch.float32).sum() / n0)
-        L = L + beta * _emission_pickup(scene, lights, cfg, hit, d, prev_p, prev_pdf,
-                                        prev_spec, active)
-        active = active & hit.valid & (hit.material_id >= 0)
-        frame = common.shading_frame(hit, scene)
+            wo = -d
+            L = L + beta * _emission_pickup(scene, lights, cfg, hit, d, prev_p, prev_pdf,
+                                            prev_spec, active)
+            active = active & hit.valid & (hit.material_id >= 0)
+            with trace.span("shading.material"):
+                frame = common.shading_frame(hit, scene)
 
-        # ray-cone texture footprint: minor axis from the cone width, one
-        # stochastic tap along the major (grazing) axis per sample
-        fp_uv = (cone_w + cone_s * torch.where(hit.valid, hit.t, 0.0)) * hit.uv_scale
-        cos_i = vm.absdot(d, hit.ns)
-        aniso = torch.clamp(1.0 / torch.clamp(cos_i, min=0.125), 1.0, 8.0)
-        d_t = d - hit.ns * vm.dot(d, hit.ns)[..., None]
-        d_tn = d_t / torch.clamp(vm.length(d_t), min=f32(1e-8))[..., None]
-        b_ax = vm.cross(hit.ns, hit.dpdu)
-        uv_dir = torch.stack([vm.dot(d_tn, hit.dpdu), vm.dot(d_tn, b_ax)], -1)
-        taps = cfg.aniso_taps
-        if taps > 1:
-            # deterministic midpoint taps along the major axis, their
-            # resolved parameters averaged: filtered per lookup
-            lp = matmod.average_taps([
-                matmod.resolve(scene.materials, hit.material_id,
-                               hit.uv + uv_dir * (fp_uv * (aniso - 1.0)
-                                                  * ((k + 0.5) / taps - 0.5))[..., None],
-                               hit.p, scene.textures, fp=fp_uv) for k in range(taps)])
-        else:
-            u_j = sample1(bounce, DIM_TEXLOD) - 0.5 if provider is None \
-                else torch.zeros((n,), **f3)
-            uv_eval = hit.uv + uv_dir * (fp_uv * (aniso - 1.0) * u_j)[..., None]
-            lp = matmod.resolve(scene.materials, hit.material_id, uv_eval, hit.p,
-                                scene.textures, fp=fp_uv)
+                # ray-cone texture footprint: minor axis from the cone width, one
+                # stochastic tap along the major (grazing) axis per sample
+                fp_uv = (cone_w + cone_s * torch.where(hit.valid, hit.t, 0.0)) * hit.uv_scale
+                cos_i = vm.absdot(d, hit.ns)
+                aniso = torch.clamp(1.0 / torch.clamp(cos_i, min=0.125), 1.0, 8.0)
+                d_t = d - hit.ns * vm.dot(d, hit.ns)[..., None]
+                d_tn = d_t / torch.clamp(vm.length(d_t), min=f32(1e-8))[..., None]
+                b_ax = vm.cross(hit.ns, hit.dpdu)
+                uv_dir = torch.stack([vm.dot(d_tn, hit.dpdu), vm.dot(d_tn, b_ax)], -1)
+                taps = cfg.aniso_taps
+                if taps > 1:
+                    # deterministic midpoint taps along the major axis, their
+                    # resolved parameters averaged: filtered per lookup
+                    lp = matmod.average_taps([
+                        matmod.resolve(scene.materials, hit.material_id,
+                                       hit.uv + uv_dir * (fp_uv * (aniso - 1.0)
+                                                          * ((k + 0.5) / taps - 0.5))[..., None],
+                                       hit.p, scene.textures, fp=fp_uv) for k in range(taps)])
+                else:
+                    u_j = sample1(bounce, DIM_TEXLOD) - 0.5 if provider is None \
+                        else torch.zeros((n,), **f3)
+                    uv_eval = hit.uv + uv_dir * (fp_uv * (aniso - 1.0) * u_j)[..., None]
+                    lp = matmod.resolve(scene.materials, hit.material_id, uv_eval, hit.p,
+                                        scene.textures, fp=fp_uv)
 
-        # NEE light half; its shadow ray rides this bounce's extension launch
-        lt, pmf = common.select_light(scene, cfg.light_strategy, hit.p, sample1(bounce, 5))
-        nee_c, o_sh, wi_sh, tmax_sh, usable, _ = common.nee_light_defer(
-            scene, lights, lp, kinds, frame, hit.p, hit.ns, hit.ng, wo, lt,
-            sample2(bounce, 3), active)
-        rays_traced = rays_traced + usable.to(torch.float32).sum()
-        nee_c = torch.where(active[..., None],
-                            beta * nee_c / torch.clamp(pmf, min=f32(1e-12))[..., None], 0.0)
+            # NEE light half; its shadow ray rides this bounce's extension launch
+            with trace.span("lights.nee"):
+                lt, pmf = common.select_light(scene, cfg.light_strategy, hit.p,
+                                              sample1(bounce, 5))
+                nee_c, o_sh, wi_sh, tmax_sh, usable, _ = common.nee_light_defer(
+                    scene, lights, lp, kinds, frame, hit.p, hit.ns, hit.ng, wo, lt,
+                    sample2(bounce, 3), active)
+                rays_traced = rays_traced + usable.to(torch.float32).sum()
+                nee_c = torch.where(active[..., None],
+                                    beta * nee_c / torch.clamp(pmf, min=f32(1e-12))[..., None],
+                                    0.0)
 
-        # one BSDF sample: MIS counterpart and path continuation
-        wo_l = frame.to_local(wo)
-        wi_l, f, pdf, spec, trans = matmod.sample(lp, kinds, wo_l, sample1(bounce, 2),
-                                                  sample2(bounce, 0))
-        wi = frame.to_world(wi_l)
-        good = active & (pdf > 0.0) & (luminance(f) > 0.0)
-        beta = torch.where(good[..., None],
-                           beta * f * (vm.absdot(wi, hit.ns)
-                                       / torch.clamp(pdf, min=f32(1e-12)))[..., None], beta)
-        active = good
-        eta_scale = torch.where(trans, eta_scale * matmod.eta_scale_on_transmit(lp, wo_l[..., 2]),
-                                eta_scale)
+            # one BSDF sample: MIS counterpart and path continuation
+            with trace.span("shading.bsdf"):
+                wo_l = frame.to_local(wo)
+                wi_l, f, pdf, spec, trans = matmod.sample(lp, kinds, wo_l, sample1(bounce, 2),
+                                                          sample2(bounce, 0))
+                wi = frame.to_world(wi_l)
+                good = active & (pdf > 0.0) & (luminance(f) > 0.0)
+                beta = torch.where(good[..., None],
+                                   beta * f * (vm.absdot(wi, hit.ns)
+                                               / torch.clamp(pdf, min=f32(1e-12)))[..., None],
+                                   beta)
+                active = good
+                eta_scale = torch.where(trans,
+                                        eta_scale * matmod.eta_scale_on_transmit(lp, wo_l[..., 2]),
+                                        eta_scale)
 
-        if bounce >= rr_start:
-            q = torch.clamp(1.0 - vm.max_component(beta * eta_scale[..., None]), min=f32(0.05))
-            survive = sample1(bounce, 6) >= q
-            beta = torch.where((active & survive)[..., None],
-                               beta / torch.clamp(1.0 - q, min=f32(1e-6))[..., None], beta)
-            active = active & survive
+                if bounce >= rr_start:
+                    q = torch.clamp(1.0 - vm.max_component(beta * eta_scale[..., None]),
+                                    min=f32(0.05))
+                    survive = sample1(bounce, 6) >= q
+                    beta = torch.where((active & survive)[..., None],
+                                       beta / torch.clamp(1.0 - q, min=f32(1e-6))[..., None],
+                                       beta)
+                    active = active & survive
 
-        sss = None
-        if matmod.MAT_SUBSURFACE in kinds:
-            L, beta, active, sss = _subsurface_leg(scene, cfg, hit, frame, lp, trans, L,
-                                                   beta, active, sample1, sample2, bounce)
+                sss = None
+                if matmod.MAT_SUBSURFACE in kinds:
+                    L, beta, active, sss = _subsurface_leg(scene, cfg, hit, frame, lp, trans, L,
+                                                           beta, active, sample1, sample2, bounce)
 
-        prev_p = hit.p
-        prev_pdf = pdf
-        prev_spec = spec
-        cone_w = cone_w + cone_s * torch.where(hit.valid, hit.t, 0.0)
-        lobe_spread = torch.clamp(torch.rsqrt(torch.clamp(pdf, min=2.0)), max=f32(0.7))
-        cone_s = torch.where(spec, cone_s, torch.maximum(cone_s, lobe_spread))
-        o = vm.offset_ray_origin(hit.p, hit.ng, wi)
-        d = wi
-        if sss is not None:       # subsurface lanes continue from their exit point
-            ok, exit_hit, wi_sss, pdf_cos = sss
-            m3 = ok[..., None]
-            o = torch.where(m3, vm.offset_ray_origin(exit_hit.p, exit_hit.ns, wi_sss), o)
-            d = torch.where(m3, wi_sss, d)
-            prev_p = torch.where(m3, exit_hit.p, prev_p)
-            prev_pdf = torch.where(ok, pdf_cos, prev_pdf)
-            prev_spec = prev_spec & ~ok
-        hit, occ = scenemod.intersect_occluded(scene, o, d, o_sh, wi_sh, tmax_sh,
-                                               active=active, active_sh=usable, time=time)
-        L = L + torch.where((usable & ~occ)[..., None], nee_c, 0.0)
-        rays_traced = rays_traced + active.to(torch.float32).sum()
+                prev_p = hit.p
+                prev_pdf = pdf
+                prev_spec = spec
+                cone_w = cone_w + cone_s * torch.where(hit.valid, hit.t, 0.0)
+                lobe_spread = torch.clamp(torch.rsqrt(torch.clamp(pdf, min=2.0)), max=f32(0.7))
+                cone_s = torch.where(spec, cone_s, torch.maximum(cone_s, lobe_spread))
+                o = vm.offset_ray_origin(hit.p, hit.ng, wi)
+                d = wi
+                if sss is not None:       # subsurface lanes continue from their exit point
+                    ok, exit_hit, wi_sss, pdf_cos = sss
+                    m3 = ok[..., None]
+                    o = torch.where(m3, vm.offset_ray_origin(exit_hit.p, exit_hit.ns, wi_sss), o)
+                    d = torch.where(m3, wi_sss, d)
+                    prev_p = torch.where(m3, exit_hit.p, prev_p)
+                    prev_pdf = torch.where(ok, pdf_cos, prev_pdf)
+                    prev_spec = prev_spec & ~ok
+            hit, occ = scenemod.intersect_occluded(scene, o, d, o_sh, wi_sh, tmax_sh,
+                                                   active=active, active_sh=usable, time=time)
+            L = L + torch.where((usable & ~occ)[..., None], nee_c, 0.0)
+            rays_traced = rays_traced + active.to(torch.float32).sum()
 
     L = L + beta * _emission_pickup(scene, lights, cfg, hit, d, prev_p, prev_pdf,
                                     prev_spec, active)
@@ -296,7 +309,7 @@ def li(scene, o, d, pixel_id, sample_idx, cfg, rr_start=3, return_stats=False,
         L = L_out.index_put((gid,), L, accumulate=True)
     L = L.reshape(shp + (3,))
     if return_stats:
-        return L, {"rays_traced": rays_traced, "occupancy": torch.stack(occupancy)}
+        return L, {"rays_traced": rays_traced}
     return L
 
 

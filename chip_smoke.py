@@ -187,6 +187,11 @@ T0 = time.perf_counter()
 H100_F32_FLOPS = 67e12        # non-tensor-core float32 peak, H100 SXM at 700 W
 H100_HBM_BYTES = 3.35e12      # HBM3 bytes/s, H100 SXM
 PLAIN_TILES = 32              # tiles the plain versions are run on
+# row gathers of kd and emit a Cornell training step, each one
+# row_grad_kernel launch in its backward: path at depth 5 gathers kd at
+# each of 5 shading bounces and emit 11 times (the light sample at each
+# bounce, the hit light's radiance at each trace); direct, 1 and 3
+ROW_GRADS_A_STEP = {"path": 16, "direct": 4}
 # the instance field's tracer launches a frame: 6 traces (the primary and
 # five fused bounces at depth 5), each one closest launch of the scene pool
 # and one (intersect_flagged, closest and shadow pairs together) for each
@@ -1826,18 +1831,35 @@ def free_port():
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
 
 
-def grad_phases(kern, clmod, driver, smp, dev, tile, kernels):
+def grad_phases(kern, clmod, driver, smp, dev, tile, kernels, row_grads):
     """Phases 15–18, baseline config 5 (inverse rendering): gradients by
     path replay on torch.autograd, the tracers on detached rays, a
-    one-rank NCCL group for the sharded steps. Returns ({path tag: kernel
-    launches}, {path tag: steps})."""
+    one-rank NCCL group for the sharded steps; each step's backward
+    launches row_grad_kernel once a gather of kd or emit rows (diff/rows.py),
+    counted a phase into row_grads["launches"] ({path tag: (launches,
+    steps)}), and phase 17's first step's launches are held to the plain
+    version (check_row_grad, into row_grads["held"]). Returns ({path tag:
+    kernel launches}, {path tag: steps})."""
     import numpy as np
     import torch
     from pbrt_tpu_torch import scenes as scenes_mod
+    from pbrt_tpu_torch import trace
     from pbrt_tpu_torch.diff import demo
+    from pbrt_tpu_torch.diff import rows as rowmod
     from pbrt_tpu_torch.dist import multihost, sharding
     from pbrt_tpu_torch.integrate import direct, path
     by_path, steps_by = {}, {}
+    row_by = row_grads["launches"] = {}
+
+    def rows_held(tag, gathers, steps, per_step):
+        """The phase's row_grad launches: one a gather that took the kernel
+        (the `diff.row_grads` count, where the phase recorded it), and
+        per_step a step."""
+        got = rowmod.row_grad.launches
+        row_by[tag] = (got, steps)
+        if got != per_step * steps or gathers not in (None, got):
+            fail(f"{tag}: {got} row_grad_kernel launches over {steps} steps and {gathers} "
+                 f"gathers through the kernel, expected {per_step} a step")
 
     def counts():
         return {k: fn.launches for k, fn in kernels.items()}
@@ -1862,12 +1884,16 @@ def grad_phases(kern, clmod, driver, smp, dev, tile, kernels):
         t0 = time.perf_counter()
         step, bad, cam, target = cornell_step(dev, 64, 2, integrator)
         zero_launches(kernels)
-        sent = sent_wavefronts(clmod, lambda: step(bad, cam, target, 4.0))
+        rowmod.row_grad.launches = 0
+        with trace.recording() as rec:
+            sent = sent_wavefronts(clmod, lambda: step(bad, cam, target, 4.0))
         tag = f"grad_wavefronts_{integrator}"
         by_path[tag], steps_by[tag] = counts(), 1
+        rows_held(tag, rec.counters().get("diff.row_grads"), 1, ROW_GRADS_A_STEP[integrator])
         held = check_sent(kern, clmod, bad.clusters, sent, tile, tag)
         kinds = {k: sum(1 for h in held if h[0] == k) for k in ("closest", "occluded")}
         log(tag, held=held, launches_per_step=by_path[tag],
+            row_grad_launches_per_step=row_by[tag][0],
             seconds=f"{time.perf_counter() - t0:.2f}", all_tiles_equal=True)
         if kinds != want or by_path[tag] != per_step:
             fail(f"{tag}: a training step traced {kinds} wavefronts, expected {want}; "
@@ -1878,8 +1904,15 @@ def grad_phases(kern, clmod, driver, smp, dev, tile, kernels):
     got = {}
     for d in (dev, "cpu"):
         step, bad, cam, target = cornell_step(d, 16, 2, "path")
-        loss, params, _ = step.forward(bad, cam, target)
+        rowmod.row_grad.launches = 0
+        with trace.recording() as rec:
+            loss, params, _ = step.forward(bad, cam, target)
         grads = step.backward(loss, params)
+        if d == dev:
+            rows_held("grad_cpu_parity", rec.counters().get("diff.row_grads"), 1,
+                      ROW_GRADS_A_STEP["path"])
+        elif rowmod.row_grad.launches or "diff.row_grads" in rec.counters():
+            fail("grad_cpu_parity: the CPU's backward took the row gradient kernel")
         got[str(d)] = (float(loss.detach()), {k: v.detach().cpu().numpy() for k, v in grads.items()})
     (lg, gg), (lc, gc) = got[str(dev)], got["cpu"]
     rel = {k: float(np.max(np.abs(gg[k] - gc[k]) / np.maximum(np.abs(gc[k]), 1e-12)))
@@ -1902,27 +1935,122 @@ def grad_phases(kern, clmod, driver, smp, dev, tile, kernels):
         # 17. the config-5 demo at 256×256, 4 spp, depth 5, one NCCL rank
         t0 = time.perf_counter()
         zero_launches(kernels)
-        out = demo.run(size=256, depth=5, device=dev, mesh=mesh, log=None)
-        torch.cuda.synchronize()
+        # the first step's row gathers' (ids, incoming gradient, rows), from
+        # a stand-in under row_grad's name: the launches the real one counts
+        # by that name land on the stand-in, and are handed back after
+        real_row_grad, sent_rows = rowmod.row_grad, []
+
+        def row_grad(idx, g, n_rows):
+            if len(sent_rows) < ROW_GRADS_A_STEP["path"]:
+                sent_rows.append((idx.clone(), g.clone(), n_rows))
+            return real_row_grad(idx, g, n_rows)
+
+        row_grad.launches = 0
+        rowmod.row_grad = row_grad
+        try:
+            with trace.recording() as rec:
+                out = demo.run(size=256, depth=5, device=dev, mesh=mesh, log=None)
+            torch.cuda.synchronize()
+        finally:
+            rowmod.row_grad = real_row_grad
+            real_row_grad.launches = row_grad.launches
         renders = demo.STEPS + 1          # the target, then one forward a step
         by_path["inverse_cornell"], steps_by["inverse_cornell"] = counts(), renders
+        rows_held("inverse_cornell", rec.counters().get("diff.row_grads"), demo.STEPS,
+                  ROW_GRADS_A_STEP["path"])
         secs = time.perf_counter() - t0
         log("inverse_cornell", resolution="256x256", spp=demo.SPP, depth=5, steps=demo.STEPS,
             lr=demo.LR, ranks=mesh.size, backend=backend,
             albedo_err=f"{out['albedo_err0']:.4f}->{out['albedo_err1']:.4f}",
             emit_err=f"{out['emit_err0']:.4f}->{out['emit_err1']:.4f}",
             loss_first=f"{out['losses'][0]:.6f}", loss_last=f"{out['losses'][-1]:.6f}",
-            launches=counts(), renders=renders, seconds=f"{secs:.2f}",
+            launches=counts(), renders=renders, row_grad_launches=row_by["inverse_cornell"][0],
+            seconds=f"{secs:.2f}",
             ms_per_step=f"{secs * 1e3 / renders:.1f}", converged=out["converged"])
         if not out["converged"]:
             fail("inverse_cornell: the demo did not recover albedo and emission")
         if counts() != {"coverage": 6 * renders, "closest": 6 * renders, "occluded": 0}:
             fail(f"inverse_cornell: launches {counts()}, expected 6/6/0 a render")
+        row_grads["held"] = check_row_grad(rowmod, sent_rows)
         by_path["inverse_bench"], steps_by["inverse_bench"] = inverse_bench(
-            driver, smp, dev, mesh, kernels)
+            driver, smp, dev, mesh, kernels, rowmod)
+        rows_held("inverse_bench", None, steps_by["inverse_bench"], ROW_GRADS_A_STEP["path"])
     finally:
         multihost.shutdown()
     return by_path, steps_by
+
+
+def check_row_grad(rowmod, sent):
+    """Phase 17b: row_grad_kernel (diff/rows.py) on the ids and incoming
+    gradients that phase 17's first step sent it (256×256, 4 spp: 262,144
+    lanes a gather; kd 6×3, emit 1×3): bit for bit its plain version, and
+    again on a second launch. At the first kd and emit gathers its device
+    ms (torch.profiler) and a call's ms by CUDA events (the wrapper's host
+    issue), beside the bytes bound, the plain version, PyTorch's
+    index_put_(accumulate=True) (the backward it replaced: sort, fill and
+    kernels) and a one-hot matrix product (cuBLAS) as the library's
+    deterministic route. Then tables of more than one chunk of 48 entries,
+    262,144 ids 80% on row 0 or uniform, held to the plain version and
+    timed beside index_put_."""
+    import torch
+    import torch.nn.functional as F
+    if len(sent) != ROW_GRADS_A_STEP["path"]:
+        fail(f"row_grad: phase 17's first step sent {len(sent)} row gathers")
+    for idx, g, r in sent:
+        blocks = rowmod.launch_grid(g.device, r * g.shape[1])[0]
+        a, b = rowmod.row_grad(idx, g, r), rowmod.row_grad(idx, g, r)
+        if not (torch.equal(a, b) and torch.equal(a, rowmod.row_grad_plain(idx, g, r, blocks))):
+            fail(f"row_grad: the kernel disagrees with its plain version, or with itself, "
+                 f"on a train step's gather of {r} rows")
+
+    def timed(idx, g, r):
+        c = g.shape[1]
+        blocks, chunks = rowmod.launch_grid(g.device, r * c)
+
+        def gemm():
+            return (F.one_hot(idx, r).float().T @ g).reshape(-1)
+
+        out = rowmod.row_grad(idx, g, r)
+        return dict(
+            lanes=int(idx.numel()), rows=r, cols=c, blocks=blocks, chunks=chunks,
+            on_row_0=float((idx == 0).float().mean()),
+            ms=device_ms(lambda: rowmod.row_grad(idx, g, r), 100, "row_grad_kernel"),
+            call_ms=cuda_ms(lambda: rowmod.row_grad(idx, g, r), 100),
+            plain_ms=cuda_ms(lambda: rowmod.row_grad_plain(idx, g, r, blocks), 3),
+            library_ms=device_ms(lambda: torch.zeros((r, c), device=g.device).index_put_(
+                (idx,), g, accumulate=True), 10),
+            gemm_ms=device_ms(gemm, 100),
+            gemm_repeats=bool(torch.equal(gemm(), gemm())),
+            gemm_rel_diff=float((gemm() - out).abs().max() / out.abs().max()),
+            bytes=int(idx.numel()) * (8 * chunks + 4 * c))
+
+    kd = timed(*next(x for x in sent if x[2] == 6))
+    emit = timed(*next(x for x in sent if x[2] == 1))
+    log("row_grad_held", gathers=len(sent), equal_plain=True, repeats=True, kd=kd, emit=emit)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    n, chunked = 512 * 512, []
+    for r, c in ((16, 3), (17, 3), (100, 3), (1000, 3), (10000, 3)):
+        for on_row_0 in (0.8, 0.0):
+            idx = torch.randint(0, r, (n,), device="cuda", generator=gen)
+            idx = torch.where(torch.rand(n, device="cuda", generator=gen) < on_row_0, 0, idx)
+            g = torch.rand((n, c), device="cuda", generator=gen) * 2.0 - 1.0
+            blocks, chunks = rowmod.launch_grid(g.device, r * c)
+            if not torch.equal(rowmod.row_grad(idx, g, r),
+                               rowmod.row_grad_plain(idx, g, r, blocks)):
+                fail(f"row_grad: {r}×{c} table ({chunks} chunks) disagrees with its plain "
+                     "version")
+            one = dict(rows=r, cols=c, on_row_0=on_row_0, blocks=blocks, chunks=chunks,
+                       ms=device_ms(lambda: rowmod.row_grad(idx, g, r), 20, "row_grad_kernel"),
+                       library_ms=device_ms(lambda: torch.zeros((r, c), device="cuda")
+                                            .index_put_((idx,), g, accumulate=True), 5),
+                       bound_ms=bound(0, n * (8 * chunks + 4 * c))[0])
+            log("row_grad_chunks", lanes=n, equal_plain=True, **one)
+            chunked.append(one)
+    return dict(max_abs_err=0.0, ms=kd["ms"], call_ms=kd["call_ms"], plain_ms=kd["plain_ms"],
+                library_ms=kd["library_ms"], gemm_ms=kd["gemm_ms"], bytes=kd["bytes"],
+                shape=f"kd {kd['rows']}x{kd['cols']}, {kd['lanes']} lanes, a train step's "
+                      "gather; ms: device time (torch.profiler)",
+                emit=emit, chunks=chunked)
 
 
 def zero_launches(kernels):
@@ -1930,7 +2058,7 @@ def zero_launches(kernels):
         k.launches = 0
 
 
-def inverse_bench(driver, smp, dev, mesh, kernels, steps=4):
+def inverse_bench(driver, smp, dev, mesh, kernels, rowmod, steps=4):
     """Phase 18, config 5 at the bench scene's full width: 512×512, 1 spp,
     path at depth 5 with compact_from=1, the white walls' and the blob's
     kd and the quad light's emit perturbed; one warm-up and `steps` timed
@@ -1973,6 +2101,7 @@ def inverse_bench(driver, smp, dev, mesh, kernels, steps=4):
     losses, times = [loss], []
     torch.cuda.reset_peak_memory_stats()
     zero_launches(kernels)
+    rowmod.row_grad.launches = 0
     for _ in range(steps):
         sc, loss, rays, t = one(sc)
         losses.append(loss)
@@ -1992,7 +2121,8 @@ def inverse_bench(driver, smp, dev, mesh, kernels, steps=4):
     log("inverse_bench_rays", rays_per_step=rays)
     log("inverse_bench_mrays_per_s_fwd_bwd", value=f"{mrays:.3f}")
     log("inverse_bench_peak_memory", bytes=peak, gib=f"{peak / 2**30:.3f}")
-    log("inverse_bench_launches_per_step", **per_step)
+    log("inverse_bench_launches_per_step", **per_step,
+        row_grad=rowmod.row_grad.launches / steps)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     log("inverse_bench_card", nvidia_smi=f"'{smi}'")
@@ -2110,7 +2240,7 @@ def main():
                 {"coverage": 3, "closest": 2, "occluded": 1}),
                ("bench_ao", ao.make_li(cfg, True, 4, return_stats=True),
                 {"coverage": 5, "closest": 1, "occluded": 4}))
-    frames, by_path, frames_by = 2, {}, {}
+    frames, by_path, frames_by, row_grads = 2, {}, {}, {}
     for tag, li, per_frame in benches:
         def frame():
             return driver.render_lanes(scene, cam, cfg, li, pid, sid)[0]
@@ -2146,7 +2276,7 @@ def main():
     from pbrt_tpu_torch.lights import distrib, lights as lightsmod
     for part in (cornell_phases(kern, clmod, scenemod, driver, direct, path, smp, dev, tile),
                  volpath_phases(kern, clmod, driver, smp, dev, tile, kernels),
-                 grad_phases(kern, clmod, driver, smp, dev, tile, kernels),
+                 grad_phases(kern, clmod, driver, smp, dev, tile, kernels, row_grads),
                  integrator_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line),
                  appearance_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line),
                  frontend_phases(kern, clmod, driver, smp, dev, tile, kernels, smi_line),
@@ -2183,7 +2313,7 @@ def main():
 
     ptxas.join()
     if not {"coverage_lanes_kernel", "coverage_columns_kernel", "closest_kernel",
-            "occluded_kernel"} <= set(usage):
+            "occluded_kernel", "row_grad_kernel"} <= set(usage):
         fail(f"nvcc -Xptxas -v gave no register counts: {usage}")
 
     def resources(*knames):
@@ -2266,6 +2396,20 @@ def main():
                      **{k: v for k, v in cp.items() if k.startswith(("profiler_", "graph_"))},
                      host_loop_ms=cp["host_loop_ms"],
                      **resources("compact_probe_kernel")))
+    held = row_grads["held"]
+    r_bound, r_by = bound(0, held["bytes"])
+    rows.append(dict(name="row_grad", route="cuda",
+                     source="pbrt_tpu_torch/kernels/csrc/cluster.cu",
+                     replaces="none: XLA's scatter-add under jax.grad",
+                     launches=sum(v for v, _ in row_grads["launches"].values()),
+                     launches_by_path={k: v for k, (v, _) in row_grads["launches"].items()},
+                     launches_per_step_by_path={k: v / n for k, (v, n)
+                                                in row_grads["launches"].items()},
+                     max_abs_err=held["max_abs_err"], ms=held["ms"], call_ms=held["call_ms"],
+                     plain_ms=held["plain_ms"], bound_ms=r_bound, bound_by=r_by,
+                     library_ms=held["library_ms"], gemm_ms=held["gemm_ms"],
+                     shape=held["shape"], emit=held["emit"], chunks=held["chunks"],
+                     **resources("row_grad_kernel")))
     print(json.dumps({"kernels": rows}), flush=True)
     log("done", total_seconds=f"{time.perf_counter() - T0:.1f}")
     print(smi_line, flush=True)

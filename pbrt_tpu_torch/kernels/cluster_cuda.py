@@ -67,6 +67,9 @@ occluded — replaces `occluded_tiles` (cluster_pallas.py:924, default
     block stops once every live lane of its own is occluded (a
     block-wide vote).
 
+The library also holds the probes' kernels (kernels/probes.py) and the
+backward of a row gather (`row_grad`, diff/rows.py).
+
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs the plain version. The plain versions repeat the kernels'
 arithmetic op for op (the kernels are built with -fmad=false), so the two
@@ -157,6 +160,8 @@ def load_library():
         lib.pbrt_overhead_probe.argtypes = [i] + [p] * 5 + [i] * 5 + [p]
         lib.pbrt_launch_floor.restype = i
         lib.pbrt_launch_floor.argtypes = [p]
+        lib.pbrt_row_grad.restype = i
+        lib.pbrt_row_grad.argtypes = [p] * 5 + [ctypes.c_longlong] + [i] * 3 + [p]
         _lib = lib
         return lib
 

@@ -1,9 +1,10 @@
 // Tile×cluster ray-tracing kernels for Hopper (sm_90a): coverage, closest
 // hit and any hit, plus two probe kernels (lane compaction, and the
-// per-block overhead of the TPU tracer's structure, staged by bulk copies)
-// and an empty kernel, the launch floor. Plain C interface, loaded with
-// ctypes by pbrt_tpu_torch/kernels/cluster_cuda.py and kernels/probes.py,
-// which also hold the plain PyTorch version of each kernel.
+// per-block overhead of the TPU tracer's structure, staged by bulk copies),
+// an empty kernel, the launch floor, and the backward of a gather of rows
+// from a table (row_grad_kernel). Plain C interface, loaded with
+// ctypes by pbrt_tpu_torch/kernels/cluster_cuda.py, kernels/probes.py and
+// diff/rows.py, which also hold the plain PyTorch version of each kernel.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC -o libcluster.so cluster.cu
@@ -864,6 +865,111 @@ __global__ void __launch_bounds__(1024) compact_probe_kernel(
 // An empty kernel: the device time of a one-block launch that does nothing.
 __global__ void launch_floor_kernel() {}
 
+// ---------------------------------------------------------- row gradient
+// The backward of a gather of rows from a table, out = table[idx]
+// (diff/rows.py): grad[e] for the table's E = rows·cols entries, entry
+// e = r·cols + c summing g[i·cols + c] over the lanes i with idx[i] = r
+// (a negative id counts from the end, as in the gather). Replaces no TPU
+// kernel: the JAX package leaves this backward to XLA's scatter-add. It
+// takes the place of PyTorch's index_put_(accumulate=True), which sorts
+// the ids and then sums each id's run of duplicates serially in one
+// group of `cols` threads, so a table of a few rows gathered by 262,144
+// lanes left the card idle behind a handful of threads.
+//
+// Design: one launch, no float atomics, a fixed order of sums.
+//   1. The entries are cut into chunks of kRowChunk, one a grid row
+//      (blockIdx.y). Each block of a row takes a grid-stride share of the
+//      lanes: thread t of block b the lanes b·T + t, then every gridDim.x·T
+//      further. A warp's loads of idx are consecutive words; its loads of
+//      g cover the lanes' rows where they fall in the block's chunk.
+//   2. Each thread adds its lanes, in order, into its own accumulators of
+//      the chunk's entries in shared memory, laid out [entry][thread]: the
+//      threads of a warp touch 32 consecutive words, with no bank conflict
+//      and no atomic.
+//   3. The block reduces its accumulators in a fixed tree: at each width
+//      s = T/2, ..., 1, acc[e][t] += acc[e][t + s] for t < s, the s·m
+//      adds of a step spread over all T threads. acc[e][0] is the block's
+//      partial, written to partial[b·E + e].
+//   4. An integer atomic ticket, one a chunk, finds the chunk's last block
+//      to finish (it does not touch a float, so the result does not depend
+//      on which block is last). That block sums the chunk's partials in
+//      block order, 0 first, writes the sums and resets the ticket for the
+//      next launch on the stream. So there is one launch per backward, and
+//      no zero fill. Its thread e loads the partials kRowBatch at a time
+//      ahead of its adds: one load's latency a block made the serial pass
+//      over 264 partials about 40 µs of a ~45 µs launch.
+// An entry's sum does not depend on the chunks: the same lanes, threads,
+// tree and blocks add into it. The wrapper gives a row of the grid
+// 2·SMs / chunks blocks (at least one), so a launch stays about 2·SMs
+// blocks whatever the table's size, and the partials about 2·SMs·kRowChunk
+// floats.
+// Bound on the card: bytes, N·(8·chunks + 4·cols) read once (the
+// partials, a few KB, stay in L2); 5.2 MB at N = 262,144, one chunk and
+// cols = 3, 1.6 µs at 3.35 TB/s. At that size a launch is ~4 lanes a
+// thread, so its time is the launch, one round of load latency, the
+// tree's 8 steps and the last block's serial pass over the partials.
+constexpr int kRowThreads = 256;
+constexpr int kRowChunk = 48;        // entries a block: 48 KB of static shared memory at 256 threads
+constexpr int kRowBatch = 16;        // partials the last block loads ahead of its adds
+
+__global__ void __launch_bounds__(kRowThreads) row_grad_kernel(
+    const long long* __restrict__ idx, const float* __restrict__ g,
+    float* __restrict__ partial, unsigned int* __restrict__ ticket,
+    float* __restrict__ out, long long n, int rows, int cols) {
+  __shared__ float acc[kRowChunk * kRowThreads];   // all 48 KB of static shared memory
+  const int t = threadIdx.x;
+  const int ne = rows * cols;
+  const int e0 = blockIdx.y * kRowChunk;           // the chunk: entries e0 .. e0 + m - 1
+  const int m = min(kRowChunk, ne - e0);
+  for (int e = 0; e < m; ++e) acc[e * kRowThreads + t] = 0.0f;
+  const long long stride = (long long)gridDim.x * kRowThreads;
+  for (long long i = (long long)blockIdx.x * kRowThreads + t; i < n; i += stride) {
+    long long r = idx[i];
+    if (r < 0) r += rows;
+    const int first = (int)r * cols - e0;          // the lane's row, in the chunk's entries
+    const int c0 = max(0, -first), c1 = min(cols, m - first);
+    const float* gi = g + i * cols;
+    for (int c = c0; c < c1; ++c) {
+      float* a = acc + (first + c) * kRowThreads + t;
+      *a = add(*a, gi[c]);
+    }
+  }
+  __syncthreads();
+  for (int s = kRowThreads / 2; s > 0; s >>= 1) {
+    for (int w = t; w < s * m; w += kRowThreads) {
+      const int e = w / s, u = w - e * s;
+      float* a = acc + e * kRowThreads + u;
+      a[0] = add(a[0], a[s]);
+    }
+    __syncthreads();
+  }
+  for (int e = t; e < m; e += kRowThreads)
+    partial[(long long)blockIdx.x * ne + e0 + e] = acc[e * kRowThreads];
+  __threadfence();
+  __syncthreads();
+  const bool last =
+      __syncthreads_or(t == 0 && atomicAdd(ticket + blockIdx.y, 1u) == gridDim.x - 1);
+  if (!last) return;
+  // A batch of kRowBatch partials is loaded before it is added, so the
+  // serial adds wait on one load's latency a batch, not one a block.
+  const int nb = (int)gridDim.x;
+  for (int e = t; e < m; e += kRowThreads) {
+    const float* p = partial + e0 + e;
+    float sum = __ldcg(p);
+    int b = 1;
+    for (; b + kRowBatch <= nb; b += kRowBatch) {
+      float v[kRowBatch];
+#pragma unroll
+      for (int k = 0; k < kRowBatch; ++k) v[k] = __ldcg(p + (long long)(b + k) * ne);
+#pragma unroll
+      for (int k = 0; k < kRowBatch; ++k) sum = add(sum, v[k]);
+    }
+    for (; b < nb; ++b) sum = add(sum, __ldcg(p + (long long)b * ne));
+    out[e0 + e] = sum;
+  }
+  if (t == 0) ticket[blockIdx.y] = 0u;
+}
+
 // Overhead probe. Replaces `run` of profile_overhead.py:111 (body `make`
 // :38), the per-grid-step cost of traverse_tiles' block structure: one
 // block a tile, rounds of kProbeCH clusters in corder order, a cluster
@@ -1292,6 +1398,22 @@ int pbrt_compact_probe(const void* mask, const void* val, void* out, void* slot,
 
 int pbrt_launch_floor(void* stream) {
   launch_floor_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+// The backward of a row gather: idx (n,) int64, g (n, cols) f32, partial
+// (blocks, rows·cols) f32 scratch, ticket one u32 a chunk of kRowChunk
+// entries, each 0 between launches on the stream (the launch leaves them
+// 0), out (rows, cols) f32. A grid of blocks × chunks.
+int pbrt_row_grad(const void* idx, const void* g, void* partial, void* ticket, void* out,
+                  long long n, int rows, int cols, int blocks, void* stream) {
+  if (rows <= 0 || cols <= 0 || (long long)rows * cols > 65535LL * kRowChunk || blocks <= 0 ||
+      n < 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(blocks, (rows * cols + kRowChunk - 1) / kRowChunk);
+  row_grad_kernel<<<grid, kRowThreads, 0, (cudaStream_t)stream>>>(
+      (const long long*)idx, (const float*)g, (float*)partial, (unsigned int*)ticket,
+      (float*)out, n, rows, cols);
   return (int)cudaGetLastError();
 }
 

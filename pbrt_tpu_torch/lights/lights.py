@@ -17,6 +17,7 @@ from ..core import vecmath as vm
 from ..core.sampling import Distribution1D, Distribution2D
 from ..core.spectrum import luminance
 from ..core.types import INV_2PI, INV_4PI, INV_PI, PI, f32, safe_sqrt
+from ..diff.rows import rows
 from ..geom import quadrics as quadmod
 
 LIGHT_POINT = 0
@@ -220,7 +221,7 @@ def sample_li(lights: LightTable, scene, lt, p_ref, u2, world_radius):
     toward distant and infinite lights), ng_l the light's normal at the
     sample (-wi where it has no surface)."""
     kind = lights.kind[lt]
-    emit = lights.emit[lt]
+    emit = rows(lights.emit, lt)
     zero = torch.zeros_like(p_ref[..., 0])
     parts = []      # (mask, wi, li, pdf, p_light, dist, is_delta, ng_l) per kind group
 
@@ -387,7 +388,7 @@ def area_light_radiance(lights: LightTable, light_id, ng, w):
     """Radiance leaving an area-light point with normal ng toward w."""
     lid = torch.clamp(light_id, min=0)
     ok = (light_id >= 0) & (lights.two_sided[lid] | (vm.dot(ng, w) > 0.0))
-    return torch.where(ok[..., None], lights.emit[lid], 0.0)
+    return torch.where(ok[..., None], rows(lights.emit, lid), 0.0)
 
 
 def pdf_li_area_scene(lights: LightTable, scene, light_id, p_ref, p_hit, ng_hit):
@@ -417,7 +418,7 @@ def sample_le(lights: LightTable, scene, lt, u_pos, u_dir, world_radius):
     kind = lights.kind[lt]
     lp = lights.p[lt]
     ldir = lights.direction[lt]
-    emit = lights.emit[lt]
+    emit = rows(lights.emit, lt)
     f3 = dict(dtype=torch.float32, device=lt.device)
     out = dict(o=torch.zeros(n + (3,), **f3), d=torch.zeros(n + (3,), **f3),
                ng_l=torch.zeros(n + (3,), **f3), le=torch.zeros(n + (3,), **f3),

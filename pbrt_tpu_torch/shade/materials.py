@@ -20,6 +20,7 @@ from ..core import vecmath as vm
 from ..core.sampling import uniform_sample_sphere
 from ..core.spectrum import luminance
 from ..core.types import INV_PI, PI, f32
+from ..diff.rows import rows
 from . import bssrdf as bssr
 from . import bxdf
 from . import fourier as fouriermod
@@ -192,8 +193,9 @@ def resolve(mats: MaterialTable, mid, uv=None, p=None, textures=None, fp=None):
     """Per-lane parameters of material ids `mid`, each textured channel
     evaluated where its id is set; `fp` is the ray-cone footprint in uv."""
     mid = torch.clamp(mid, min=0)
-    kd, ks, kr, kt = mats.kd[mid], mats.ks[mid], mats.kr[mid], mats.kt[mid]
-    rough = mats.roughness[mid]
+    kd, ks, kr, kt = (rows(mats.kd, mid), rows(mats.ks, mid), rows(mats.kr, mid),
+                      rows(mats.kt, mid))
+    rough = rows(mats.roughness, mid)
     sigma = mats.sigma[mid]
     if textures is not None and uv is not None:
         from . import textures as texmod
@@ -219,7 +221,7 @@ def resolve(mats: MaterialTable, mid, uv=None, p=None, textures=None, fp=None):
     ax = torch.where(remap, bxdf.roughness_to_alpha(rough[..., 0]), rough[..., 0])
     ay = torch.where(remap, bxdf.roughness_to_alpha(rough[..., 1]), rough[..., 1])
     return LaneParams(kind=mats.kind[mid], kd=kd, ks=ks, kr=kr, kt=kt, ax=ax, ay=ay,
-                      eta=mats.eta[mid], metal_eta=mats.metal_eta[mid],
+                      eta=rows(mats.eta, mid), metal_eta=mats.metal_eta[mid],
                       metal_k=mats.metal_k[mid], sigma=sigma, opacity=mats.opacity[mid],
                       rough_is_zero=rough.amax(-1) < f32(1e-5), aux=mats.aux[mid],
                       fourier=mats.fourier_table)

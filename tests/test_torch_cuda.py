@@ -475,27 +475,121 @@ def _cornell_train_step(device, res=16, spp=2):
 def test_training_step_on_the_card_matches_the_cpu(card):
     """One Cornell training step (path, depth 5, 16×16, 2 spp): the
     forward launches coverage and closest hit six times each, the
-    backward launches no tracer, and the loss and the kd and emit
-    gradients equal the plain versions' on the CPU at rtol 1e-4, atol
-    1e-6 (chip_smoke.py's grad_cpu_parity)."""
+    backward launches no tracer and one row_grad_kernel for each gather
+    of kd and emit rows (diff/rows.py; the `diff.row_grads` count), and
+    the loss and the kd and emit gradients equal the plain versions' on
+    the CPU at rtol 1e-4, atol 1e-6 (chip_smoke.py's grad_cpu_parity)."""
+    from pbrt_tpu_torch import trace
+    from pbrt_tpu_torch.diff import rows as rmod
     kernels = (tkern.coverage, tkern.closest, tkern.occluded)
     got = []
     for dev in ("cuda", "cpu"):
         step, bad, cam, target = _cornell_train_step(dev)
         for k in kernels:
             k.launches = 0
-        loss, params, _ = step.forward(bad, cam, target)
+        with trace.recording() as rec:
+            loss, params, _ = step.forward(bad, cam, target)
         fwd = tuple(k.launches for k in kernels)
+        row_grads = rmod.row_grad.launches
         grads = step.backward(loss, params)
+        row_grads = rmod.row_grad.launches - row_grads
         assert tuple(k.launches for k in kernels) == fwd
+        gathers = rec.counters()
         if dev == "cuda":
             assert fwd == (6, 6, 0)
+            assert row_grads == gathers["diff.row_grads"] > 0
+            assert "diff.row_grads_plain" not in gathers
+        else:
+            assert row_grads == 0 and "diff.row_grads" not in gathers
         got.append((float(loss.detach()), {k: v.cpu().numpy() for k, v in grads.items()}))
     (lg, gg), (lc, gc) = got
     np.testing.assert_allclose(lg, lc, rtol=1e-4)
     for k in ("kd", "emit"):
         assert np.isfinite(gg[k]).all() and np.abs(gg[k]).max() > 1e-4
         np.testing.assert_allclose(gg[k], gc[k], rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+def _row_grad_case(rows, cols, n, seed):
+    """ids (n,) int64 on the card, 80% on row 0 and a tenth of the rest
+    counted from the end, and an incoming gradient (n, cols) of both
+    signs."""
+    r = np.random.RandomState(seed)
+    ids = np.where(r.rand(n) < 0.8, 0, r.randint(0, rows, n))
+    ids = np.where(r.rand(n) < 0.1, ids - rows, ids)
+    g = (r.rand(n, cols) * 2.0 - 1.0).astype(np.float32)
+    return torch.as_tensor(ids, device="cuda"), torch.as_tensor(g, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 1000, 262147])
+@pytest.mark.parametrize("rows,cols", [(6, 3), (1, 3), (1, 1), (48, 1), (16, 3), (1, 48),
+                                       (49, 1), (2, 50), (100, 3), (1, 100)])
+def test_row_grad_equals_plain_version(card, rows, cols, n):
+    """row_grad_kernel (diff/rows.py) at the Cornell tables' shapes, at one
+    chunk's edge (48 entries) and over several chunks (a row split between
+    two among them): bit for bit the plain version on the card, the same
+    bits on a second launch, and within 1e-6 of each entry's sum of
+    magnitudes of a float64 sum."""
+    from pbrt_tpu_torch.diff import rows as rmod
+    idx, g = _row_grad_case(rows, cols, n, 31 + n)
+    before = rmod.row_grad.launches
+    a = rmod.row_grad(idx, g, rows)
+    b = rmod.row_grad(idx, g, rows)
+    assert rmod.row_grad.launches - before == 2
+    plain = rmod.row_grad_plain(idx, g, rows, rmod.launch_grid(idx.device, rows * cols)[0])
+    assert torch.equal(a, b) and torch.equal(a, plain)
+    flat = (idx % rows).cpu()
+    g64 = g.double().cpu()
+    ref = torch.zeros(rows, cols, dtype=torch.float64).index_add_(0, flat, g64).reshape(-1)
+    mag = torch.zeros(rows, cols, dtype=torch.float64).index_add_(0, flat, g64.abs()).reshape(-1)
+    assert ((a.double().cpu() - ref).abs() <= 1e-6 * mag).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [1, 7, 1000])
+def test_row_grad_at_other_grid_sizes(card, blocks):
+    """Other block counts (the ticket's last block, a grid wider than the
+    lanes), on one chunk and on seven: the plain version's bits at the
+    same count."""
+    from pbrt_tpu_torch.diff import rows as rmod
+    for rows, cols in ((6, 3), (100, 3)):
+        idx, g = _row_grad_case(rows, cols, 100_003, 41)
+        out = rmod.row_grad(idx, g, rows, _blocks=blocks)
+        assert torch.equal(out, rmod.row_grad_plain(idx, g, rows, blocks))
+
+
+@pytest.mark.cuda
+def test_rows_backward_on_the_card(card):
+    """rows() of a (6, 3) table that requires grad, ids (512, 512): the
+    forward is table[idx] bit for bit, the backward launches the kernel
+    once and gives the plain version's sums; a table of 49 entries and
+    int32 ids take the kernel too; under no_grad, and for a float64 table,
+    it is table[idx] with PyTorch's own backward."""
+    from pbrt_tpu_torch.diff import rows as rmod
+    idx, w = _row_grad_case(6, 3, 512 * 512, 43)
+    idx, w = idx.view(512, 512), w.view(512, 512, 3)
+    table = torch.rand(6, 3, device="cuda").requires_grad_(True)
+    before = rmod.row_grad.launches
+    out = rmod.rows(table, idx)
+    assert torch.equal(out, table[idx])
+    (grad,) = torch.autograd.grad((out * w).sum(), table)
+    assert rmod.row_grad.launches - before == 1
+    assert torch.equal(grad.reshape(-1), rmod.row_grad_plain(
+        idx.reshape(-1), w.reshape(-1, 3), 6, rmod.launch_grid(idx.device, 18)[0]))
+    with torch.no_grad():
+        assert rmod.rows(table, idx).grad_fn is None
+    wide = torch.rand(49, device="cuda").requires_grad_(True)
+    i32 = (idx % 49).int()
+    out = rmod.rows(wide, i32)
+    assert torch.equal(out, wide[i32])
+    (grad,) = torch.autograd.grad((out * w[..., 0]).sum(), wide)
+    assert rmod.row_grad.launches - before == 2
+    assert torch.equal(grad, rmod.row_grad_plain(
+        i32.reshape(-1).long(), w[..., 0].reshape(-1, 1), 49,
+        rmod.launch_grid(idx.device, 49)[0]))
+    f64 = torch.rand(6, 3, device="cuda", dtype=torch.float64).requires_grad_(True)
+    assert type(rmod.rows(f64, idx).grad_fn) is type(f64[idx].grad_fn)
+    assert rmod.row_grad.launches - before == 2
 
 
 @pytest.mark.cuda

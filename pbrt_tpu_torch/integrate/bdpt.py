@@ -212,7 +212,9 @@ def _walk(scene, cfg, pid, sid, o, d, beta0, pdf_dir0, mode, dim_base, max_v, pa
                               p=p_med, ng=-d, ns=-d, beta=beta, pdf_fwd=pdf_med)
             path = _set_vertex(path, i, valid=path.valid[i] | m_sampled)
             nv = torch.where(m_sampled, i + 1, nv)
-            wi_med, ph_pdf = medmod.hg_sample(d, _phase_g0(scene, n), s2(dim_base + 8 * i + 6))
+            # about wo = -d, as PBRT's HenyeyGreenstein::Sample_p takes it
+            wi_med, ph_pdf = medmod.hg_sample(-d, _phase_g0(scene, n),
+                                              s2(dim_base + 8 * i + 6))
             rev_med = _conv_to_vertex(ph_pdf, p_med, path, i - 1)
             path = _set_vertex(path, i - 1,
                                pdf_rev=torch.where(m_sampled, rev_med, path.pdf_rev[i - 1]))

@@ -9,6 +9,10 @@ The grid medium's ratio tracking (`grid_tr`) and delta tracking
 fori_loop does, and stop once no lane is alive: checked every CHECK_EVERY
 steps, one host sync each. The early stop is exact, since a dead lane's
 results no longer change.
+
+Each call of `medium_sample`, `medium_tr` and the phase function
+(`phase_g`, `hg_phase`, `hg_sample`) is a span of the `media` layer:
+`media.sample`, `media.tr`, `media.phase`.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import trace
 from ..core import vecmath as vm
 from ..core.rng import uniform_float
 from ..core.types import INV_4PI, PI, f32
@@ -103,6 +108,7 @@ def build_media(rows, grid=None, device=None):
 
 # ------------------------------------------------------------ phase function
 
+@trace.spanned("media.phase")
 def hg_phase(cos_theta, g):
     """Henyey–Greenstein phase function value."""
     denom = 1.0 + g * g + 2.0 * g * cos_theta
@@ -110,8 +116,11 @@ def hg_phase(cos_theta, g):
         denom * torch.sqrt(torch.clamp(denom, min=f32(1e-8))), min=f32(1e-8))
 
 
+@trace.spanned("media.phase")
 def hg_sample(wo, g, u2):
-    """Sample wi from HG around the forward direction wo. Returns (wi, pdf)."""
+    """Sample wi from HG about wo, the direction back along the ray (PBRT's
+    HenyeyGreenstein::Sample_p): wi's density is hg_phase(wo . wi, g), so
+    for g > 0 it leans away from wo. Returns (wi, pdf)."""
     small = g.abs() < f32(1e-3)
     g_safe = torch.where(small, f32(1e-3) * torch.sign(g + f32(1e-9)), g)
     sq = (1.0 - g_safe * g_safe) / (1.0 + g_safe - 2.0 * g_safe * u2[..., 0])
@@ -157,6 +166,7 @@ def homogeneous_sample(sigma_t, sigma_s, dist, u, channel_u):
 
 # -------------------------------------------------- per-lane medium dispatch
 
+@trace.spanned("media.tr")
 def medium_tr(media: MediumTable, med, o, d, dist, key):
     """Transmittance (N, 3) along [0, dist) of rays starting in medium
     `med` (N,); 1 where med < 0 (vacuum)."""
@@ -174,6 +184,7 @@ def medium_tr(media: MediumTable, med, o, d, dist, key):
     return torch.where((med >= 0)[..., None], tr, 1.0)
 
 
+@trace.spanned("media.sample")
 def medium_sample(media: MediumTable, med, o, d, dist, u, u_ch, key):
     """A medium interaction along [0, dist) in medium `med`. Returns
     (sampled, t, weight (N, 3)); vacuum lanes: not sampled, t = dist,
@@ -204,6 +215,7 @@ def medium_sample(media: MediumTable, med, o, d, dist, u, u_ch, key):
     return sampled & ~vac, torch.where(vac, dist, t), torch.where(vac[..., None], 1.0, weight)
 
 
+@trace.spanned("media.phase")
 def phase_g(media: MediumTable, med):
     """Per-lane HG asymmetry (0 for vacuum lanes)."""
     if media is None:

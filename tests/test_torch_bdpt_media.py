@@ -4,7 +4,10 @@ config 4's fog box (σa 0.08, σs 0.45, g 0.2): the walks' medium vertices
 8×8, 2 spp, depth 2, random sampler; held as tests/test_torch_bdpt.py
 holds the area-lit box (the image at rtol 1e-4, atol 1e-6 and the pixel
 check, every strategy's sums at rtol 1e-4). Both walks make medium
-vertices."""
+vertices. The JAX package draws the phase sample about the ray's
+direction d, where PBRT (and the port) draw it about wo = -d; the
+reference runs here with that call given -d (`phase_about_wo`)."""
+from pbrt_tpu.shade import media as jmed
 from scenes.volumetric import fog_scene as jfog_scene
 from scenes.volumetric import volumetric_camera as jcamera
 from tests.test_torch_bdpt import RES, check_bdpt
@@ -14,7 +17,15 @@ from pbrt_tpu_torch import scenes as tscenes
 from pbrt_tpu_torch.integrate import bdpt as tbdpt
 
 
+def phase_about_wo(monkeypatch):
+    """The JAX package's hg_sample callers pass the ray's direction d;
+    give it wo = -d, as PBRT's HenyeyGreenstein::Sample_p takes."""
+    hg_sample = jmed.hg_sample
+    monkeypatch.setattr(jmed, "hg_sample", lambda d, g, u2: hg_sample(-d, g, u2))
+
+
 def test_bdpt_fog_matches_jax(monkeypatch):
+    phase_about_wo(monkeypatch)
     medium_vertices = []
     walk = tbdpt._walk
 

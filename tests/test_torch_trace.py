@@ -11,7 +11,12 @@ on the CPU:
   of each `cluster.prepare`;
 - tracing on issues the same aten calls as tracing off;
 - `recording()` and the profiler's flag each turn recording on, and
-  nothing else does."""
+  nothing else does;
+- a volumetric frame of config 4's fog box, 16×16, 2 spp, depth 5: on,
+  it records the media layer's spans beside the lights', shading's and
+  the driver's, its counters hold 0 < `media.events` <= `media.lanes`
+  <= the lanes handed to `medium_sample`, and the image is bit-equal to
+  the image with tracing off."""
 from collections import Counter
 
 import pytest
@@ -21,7 +26,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from pbrt_tpu_torch import scenes, trace
 from pbrt_tpu_torch.core import samplers as smp
 from pbrt_tpu_torch.geom import cluster as clmod
-from pbrt_tpu_torch.integrate import driver, path
+from pbrt_tpu_torch.integrate import driver, path, volpath
+from pbrt_tpu_torch.shade import media
 
 RES, SPP, DEPTH, TILE = 64, 1, 5, 256
 
@@ -163,3 +169,39 @@ def test_what_turns_recording_on():
     assert trace.counters() == {"tracer.lanes": 7}
     trace.clear()
     assert trace.records() == [] and trace.counters() == {}
+
+
+@pytest.fixture(scope="module")
+def fog_frame():
+    """render() of one volpath frame of the fog box, scene built once."""
+    scene = scenes.fog_scene(device="cpu", tile=TILE)
+    cam = scenes.volumetric_camera((16, 16), "cpu")
+    cfg = driver.RenderConfig(width=16, height=16, spp=2, max_depth=DEPTH,
+                              sampler=smp.SamplerConfig(kind="zerotwo", spp=2, seed=13))
+    li = volpath.make_li(cfg, return_stats=True)
+    return lambda: driver.render(scene, cam, cfg, li)[0]
+
+
+def test_a_volpath_frame_records_the_media_layer(fog_frame, monkeypatch):
+    plain = fog_frame()
+    lanes = []
+    sample0 = media.medium_sample
+
+    def medium_sample(*args):
+        out = sample0(*args)
+        lanes.append(out[0].numel())
+        return out
+
+    monkeypatch.setattr(media, "medium_sample", medium_sample)
+    with trace.recording() as rec:
+        img = fog_frame()
+    assert torch.equal(plain, img)
+    names = {r.name for r in rec.records}
+    assert {"media.sample", "media.tr", "media.phase", "lights.nee", "lights.emission",
+            "shading.material", "shading.bsdf", "driver.bounce", "driver.li"} <= names
+    rows = {row[0]: row[1] for row in rec.table()}
+    assert rows["driver.bounce"] == rows["media.sample"] == DEPTH
+    assert rows["media.tr"] == 2 * DEPTH + 1
+    counts = rec.counters()
+    assert 0 < counts["media.events"] <= counts["media.lanes"] <= sum(lanes)
+    assert len(lanes) == DEPTH and counts["media.lanes"] > lanes[0]

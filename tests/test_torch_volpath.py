@@ -4,7 +4,9 @@ against physics (baseline config 4: scenes/volumetric.py).
 - Config 4's fog box, 32×32, 4 spp, depth 5, zerotwo, and its smoke
   variant (the grid medium), 16×16, 2 spp: the port's native scene (its
   one cluster through the plain versions of the kernels) against the JAX
-  scene (brute force), the pixel check of tests/test_oracle.py.
+  scene (brute force), the pixel check of tests/test_oracle.py; the
+  JAX package's phase sample drawn about wo = -d, as the port and PBRT
+  draw it (`phase_about_wo`).
 - A σ = 0 medium: volpath equals the port's own path.li without
   compaction (rtol 1e-4, atol 1e-5, as tests/test_integrators.py).
 - A pure-scattering furnace in a white environment renders 1 ± 2%
@@ -27,6 +29,7 @@ from scenes.volumetric import fog_scene as jfog_scene, smoke_scene as jsmoke_sce
 from scenes.volumetric import volumetric_camera as jcamera
 from tests.test_oracle import _check
 from tests.test_torch_bdpt import reference_jit
+from tests.test_torch_bdpt_media import phase_about_wo
 from tests.test_torch_shade import scene_tree
 from tests.test_torch_media import one_torch_thread  # noqa: F401 (autouse)
 
@@ -52,7 +55,8 @@ def _port(scene, cam, cfg, li=tvolpath.make_li):
 
 
 @pytest.mark.parametrize("variant,res,spp", [("fog", 32, 4), ("smoke", 16, 2)])
-def test_config4_matches_jax(variant, res, spp):
+def test_config4_matches_jax(variant, res, spp, monkeypatch):
+    phase_about_wo(monkeypatch)
     jcfg, tcfg = _cfgs(res, spp)
     js = jfog_scene() if variant == "fog" else jsmoke_scene()
     ts = (tscenes.fog_scene if variant == "fog" else tscenes.smoke_scene)(device="cpu",
